@@ -1,0 +1,168 @@
+"""The port's backbone, decoder and post-processing against the JAX package
+at reduced widths, on the CPU, fp32.
+
+The flax variables are perturbed with seeded noise (the default init has
+identity norms and zero biases, which would hide a wrong mapping) and go
+into the port through ``weights.from_flax``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from unidet3d_tpu_torch.weights import from_flax
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _perturb(variables, seed):
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, x):
+        x = np.asarray(x)
+        if path[-1].key == "var":
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        return (x + 0.1 * rng.randn(*x.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, jax.device_get(variables))
+
+
+def test_backbone_matches_jax_reduced_width():
+    from unidet3d_tpu.models.unet import UNetBackbone as JaxBackbone
+    from unidet3d_tpu.ops import gridpack as jgp
+
+    from unidet3d_tpu_torch.data.synthetic import synthetic_scene
+    from unidet3d_tpu_torch.data.batcher import to_device
+    from unidet3d_tpu_torch.models.detector import PointBatch
+    from unidet3d_tpu_torch.models.unet import UNetBackbone
+    from unidet3d_tpu_torch.ops.gridpack import build_gridpack_numpy, quantize_points
+
+    planes = (8, 16, 24)
+    caps = [2048, 1024, 1024]
+    pts = synthetic_scene(2000, seed=3)[:, :3]
+    valid = np.ones((1, 2000), bool)
+    bxyz = quantize_points((pts[None] / 0.02).astype(np.float32), valid)
+    jpack, _ = jgp.build_gridpack_numpy(bxyz, valid.reshape(-1), caps)
+    pack, _ = build_gridpack_numpy(bxyz, valid.reshape(-1), caps)
+    rng = np.random.RandomState(0)
+    feats = rng.randn(caps[0], 6).astype(np.float32)
+    feats[pack.n_valid[0]:] = 0.0
+
+    jmod = JaxBackbone(planes, dtype=jnp.float32, remat=False)
+    jpack = jax.tree_util.tree_map(jnp.asarray, jpack)
+    variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(feats), jpack, False)
+    variables = _perturb(variables, 1)
+    ref = np.asarray(jmod.apply(variables, jnp.asarray(feats), jpack, False))
+
+    mod = UNetBackbone(6, planes, torch.float32)
+    mod.load_state_dict(from_flax(variables))
+    dummy = PointBatch(*(np.zeros(1) for _ in PointBatch._fields))
+    _, tpack = to_device(dummy, pack, "cpu")
+    with torch.no_grad():
+        mine = mod(_t(feats), tpack).numpy()
+    # fp32 both sides; summation order differs through 15 convs.
+    np.testing.assert_allclose(mine, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_decoder_matches_jax_reduced_width():
+    from unidet3d_tpu.models.decoder import UniDecoder as JaxDecoder
+
+    from unidet3d_tpu_torch.core.class_table import build_class_table
+    from unidet3d_tpu_torch.core.config import DATASETS_CLASSES, default_config
+    from unidet3d_tpu_torch.models.decoder import UniDecoder
+
+    cfg = default_config()
+    table = build_class_table(DATASETS_CLASSES)
+    rng = np.random.RandomState(2)
+    b, q, cin = 2, 40, 16
+    queries = rng.randn(b, q, cin).astype(np.float32)
+    mask = rng.rand(b, q) > 0.3
+    centers = (rng.rand(b, q, 3) * 4).astype(np.float32)
+    ds = np.array([0, 5], np.int32)  # axis-aligned and rotated decode
+    args = (jnp.asarray(queries), jnp.asarray(mask), jnp.asarray(centers),
+            jnp.asarray(ds))
+
+    kw = dict(num_layers=2, d_model=64, num_heads=2, hidden_dim=128,
+              activation="gelu")
+    jmod = JaxDecoder(dropout=0.0, cls_gather=table.gather, angles=cfg.angles,
+                      dtype=jnp.float32, **kw)
+    variables = _perturb(jmod.init(jax.random.PRNGKey(0), *args, False), 3)
+    ref = jmod.apply(variables, *args, False)
+
+    mod = UniDecoder(in_channels=cin, cls_gather=table.gather, angles=cfg.angles,
+                     dtype=torch.float32, **kw)
+    mod.load_state_dict(from_flax(variables))
+    with torch.no_grad():
+        out = mod(_t(queries), _t(mask), _t(centers), _t(ds))
+    # Valid query rows only; fp32 attention, GELU(tanh), LayerNorm eps 1e-6.
+    for name in ("cls_logits", "boxes"):
+        np.testing.assert_allclose(
+            getattr(out, name).numpy()[:, mask], np.asarray(getattr(ref, name))[:, mask],
+            rtol=1e-4, atol=1e-4, err_msg=name,
+        )
+
+
+def _post_inputs(seed, q=64, p=3000):
+    rng = np.random.RandomState(seed)
+    logits = (rng.randn(q, 85) * 3).astype(np.float32)
+    logits[:, 18:84] = -1e9  # ScanNet-like padding of the class columns
+    boxes = np.concatenate(
+        [rng.rand(q, 3) * 3, 0.3 + rng.rand(q, 3), np.zeros((q, 1))], 1
+    ).astype(np.float32)
+    qvalid = rng.rand(q) > 0.2
+    points = (rng.rand(p, 3) * 3).astype(np.float32)
+    pvalid = np.arange(p) < p - 200
+    # Superpoints: 8 x 8 x 8 spatial cells of 0.375 m, S = 512.
+    cell = np.floor(points / 0.375).astype(np.int32).clip(0, 7)
+    sp_ids = cell[:, 0] * 64 + cell[:, 1] * 8 + cell[:, 2]
+    return logits, boxes, qvalid, points, pvalid, sp_ids
+
+
+@pytest.mark.parametrize("dataset_idx", [0, 2])
+def test_predict_scene_matches_jax(dataset_idx):
+    from unidet3d_tpu.core.config import default_config as jax_config
+    from unidet3d_tpu.models.postprocess import predict_scene as jax_predict_scene
+
+    from unidet3d_tpu_torch.core.config import default_config
+    from unidet3d_tpu_torch.models.postprocess import predict_batch, predict_scene
+
+    kw = dict(max_superpoints=512)
+    inputs = _post_inputs(dataset_idx)
+    ref = jax_predict_scene(jax_config(**kw), dataset_idx,
+                            *(jnp.asarray(x) for x in inputs))
+    cfg = default_config(**kw)
+    mine = predict_scene(cfg, dataset_idx, *(_t(x) for x in inputs))
+    keep = np.asarray(ref.valid)
+    assert keep.any()
+    np.testing.assert_array_equal(mine.valid.numpy(), keep)
+    # Labels of scored detections: past them the top-k ties at probability
+    # 0 (masked class columns) and either order is right.
+    scored = np.asarray(ref.scores) > 0
+    np.testing.assert_array_equal(mine.labels.numpy()[scored],
+                                  np.asarray(ref.labels)[scored])
+    # Softmax scores in fp32; trimmed boxes are min/max of the same points.
+    np.testing.assert_allclose(mine.scores.numpy(), np.asarray(ref.scores),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(mine.boxes.numpy()[keep], np.asarray(ref.boxes)[keep],
+                               rtol=1e-5, atol=1e-5)
+    batched = predict_batch(cfg, dataset_idx, *(_t(x)[None] for x in inputs))
+    np.testing.assert_array_equal(batched.valid[0].numpy(), keep)
+
+
+def test_predict_scene_rotated_dataset_not_ported():
+    from unidet3d_tpu_torch.core.config import default_config
+    from unidet3d_tpu_torch.models.postprocess import predict_scene
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        predict_scene(default_config(), 5, *(_t(x) for x in _post_inputs(0)))
+
+
+def test_from_flax_rejects_unknown_leaves():
+    with pytest.raises(ValueError, match="no counterpart"):
+        from_flax({"params": {"decoder": {"mystery": np.zeros(3)}}})
+    with pytest.raises(ValueError, match="collection"):
+        from_flax({"cache": {}})
