@@ -43,7 +43,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         pytest.skip("a CUDA device is present: the default device is valid")
     from unidet3d_tpu_torch.core.class_table import build_class_table
     from unidet3d_tpu_torch.core.config import DATASETS_CLASSES, default_config
-    from unidet3d_tpu_torch.data.batcher import collate, to_device
+    from unidet3d_tpu_torch.data.batcher import collate, gt_to_device, to_device
     from unidet3d_tpu_torch.data.synthetic import synthetic_scene
     from unidet3d_tpu_torch.models.detector import UniDet3D
 
@@ -51,12 +51,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
                          num_planes=(8, 16), num_layers=1, d_model=32,
                          num_heads=1, hidden_dim=32)
     table = build_class_table(DATASETS_CLASSES)
-    batch, pack = collate([{"points": synthetic_scene(400, seed=0),
-                            "dataset_idx": 0}], cfg)
+    batch, gt, pack = collate([{"points": synthetic_scene(400, seed=0),
+                                "dataset_idx": 0}], cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         UniDet3D(cfg, table)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         to_device(batch, pack)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gt_to_device(gt)
     net = UniDet3D(cfg, table, device="cpu")
-    out, aux = net(*to_device(batch, pack, "cpu"))
+    with torch.no_grad():
+        out, aux = net(*to_device(batch, pack, "cpu"))
     assert np.isfinite(out.cls_logits.numpy()).all()

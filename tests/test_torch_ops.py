@@ -93,8 +93,8 @@ def test_collate_eval_fields_match_jax():
         pts = synthetic_scene(n, seed=10 + i)
         samples.append({"points": pts, "dataset_idx": 2 * i,
                         "sp_pts_mask": stripe_superpoints(pts, 30)})
-    batch, pack = collate(samples, default_config(**caps),
-                          rng=np.random.RandomState(5))
+    batch, _, pack = collate(samples, default_config(**caps),
+                             rng=np.random.RandomState(5))
     jbatch, _, jpack = jax_collate(samples, jax_config(subm_impl="xla", **caps),
                                    training=False, rng=np.random.RandomState(5))
     for name in batch._fields:

@@ -9,6 +9,7 @@ same sample with their own code.
 """
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -55,14 +56,15 @@ def both():
     rec = record_activations(model, variables, jbatch, jpack)
 
     cfg = default_config(**caps)
-    batch_np, pack_np = collate([sample], cfg, rng=np.random.RandomState(0))
+    batch_np, _, pack_np = collate([sample], cfg, rng=np.random.RandomState(0))
     net = UniDet3D(cfg, build_class_table(DATASETS_CLASSES), device="cpu")
     net.load_state_dict(from_flax(jax.device_get(variables)))
     captured = {}
     net.backbone.register_forward_hook(
         lambda mod, args, out: captured.__setitem__("backbone", out)
     )
-    out, aux = net(*to_device(batch_np, pack_np, "cpu"))
+    with torch.no_grad():
+        out, aux = net(*to_device(batch_np, pack_np, "cpu"))
     return dict(
         rec=rec, out=out, aux=aux, backbone=captured["backbone"],
         jbatch=jbatch_np, jpack=jpack_np, batch=batch_np, pack=pack_np,

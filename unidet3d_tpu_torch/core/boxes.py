@@ -1,4 +1,4 @@
-"""3D box geometry needed by post-processing.
+"""3D box geometry needed by post-processing and the training loss.
 
 Box convention: ``(cx, cy, cz, dx, dy, dz[, yaw])`` with the gravity center
 and yaw around +z, as in the JAX package's ``core/boxes.py``.
@@ -49,14 +49,18 @@ def get_face_distances(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tenso
 
 
 def axis_aligned_overlaps_3d(
-    boxes1: torch.Tensor, boxes2: torch.Tensor
+    boxes1: torch.Tensor, boxes2: torch.Tensor, aligned: bool = False
 ) -> torch.Tensor:
-    """Pairwise IoU (N, M) of corner-format boxes (N, 6) and (M, 6)."""
-    lt = torch.maximum(boxes1[:, None, :3], boxes2[None, :, :3])
-    rb = torch.minimum(boxes1[:, None, 3:], boxes2[None, :, 3:])
+    """IoU of corner-format boxes (x1, y1, z1, x2, y2, z2): pairwise (N, M)
+    of (N, 6) and (M, 6), or with `aligned` elementwise (...,) of two
+    (..., 6) stacks."""
+    if not aligned:
+        boxes1, boxes2 = boxes1[:, None, :], boxes2[None, :, :]
+    lt = torch.maximum(boxes1[..., :3], boxes2[..., :3])
+    rb = torch.minimum(boxes1[..., 3:], boxes2[..., 3:])
     wh = (rb - lt).clamp(min=0)
     overlap = wh[..., 0] * wh[..., 1] * wh[..., 2]
-    vol1 = torch.prod(boxes1[:, 3:] - boxes1[:, :3], dim=-1)
-    vol2 = torch.prod(boxes2[:, 3:] - boxes2[:, :3], dim=-1)
-    union = vol1[:, None] + vol2[None, :] - overlap
+    vol1 = torch.prod(boxes1[..., 3:] - boxes1[..., :3], dim=-1)
+    vol2 = torch.prod(boxes2[..., 3:] - boxes2[..., :3], dim=-1)
+    union = vol1 + vol2 - overlap
     return overlap / union.clamp(min=EPS)

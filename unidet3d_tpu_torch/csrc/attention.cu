@@ -22,6 +22,11 @@
 // ids; per tile each thread computes its 64 scores, takes the tile max,
 // rescales its accumulator once (online softmax) and adds p @ V. The L x L
 // scores never reach device memory. Shared memory is 16.25 KB.
+//
+// For training the kernel also writes each row's logsumexp of the scaled
+// scores, lse = m + log(l) in fp32, (B, H, L): the backward kernels
+// (attention_bwd.cu) recompute p = exp(s - lse) from it. The eval path passes
+// a null lse and writes nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -52,7 +57,8 @@ template <typename T>
 __global__ void __launch_bounds__(kQueries)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ seg,
-                     T* __restrict__ o, int H, int L, float scale) {
+                     T* __restrict__ o, float* __restrict__ lse, int H,
+                     int L, float scale) {
   __shared__ float s_k[kKeys][kDim];
   __shared__ float s_v[kKeys][kDim];
   __shared__ int s_seg[kKeys];
@@ -129,31 +135,34 @@ __global__ void __launch_bounds__(kQueries)
 #pragma unroll
     for (int d = 0; d < kDim; ++d)
       o[base + (size_t)qi * kDim + d] = from_f32<T>(acc[d] * inv);
+    if (lse != nullptr)
+      lse[(size_t)bh * L + qi] = l > 0.f ? m + logf(l) : -INFINITY;
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
-                   void* o, int B, int H, int L, float scale,
+                   void* o, float* lse, int B, int H, int L, float scale,
                    cudaStream_t stream) {
   const dim3 grid((L + kQueries - 1) / kQueries, B * H);
   flash_fwd_kernel<T><<<grid, kQueries, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg, static_cast<T*>(o), H, L, scale);
+      static_cast<const T*>(v), seg, static_cast<T*>(o), lse, H, L, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: (B, H, L, 32), all fp32 (is_bf16 = 0) or all bf16
-// (is_bf16 = 1); seg: (B, L) int32. Launches on `stream` without
-// synchronising and returns cudaGetLastError().
+// (is_bf16 = 1); seg: (B, L) int32; lse: (B, H, L) fp32 or null. Launches on
+// `stream` without synchronising and returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   const int* seg, void* o, int B, int H, int L,
-                                   float scale, int is_bf16, void* stream) {
+                                   const int* seg, void* o, float* lse, int B,
+                                   int H, int L, float scale, int is_bf16,
+                                   void* stream) {
   if (B <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, seg, o, B, H, L, scale, s);
-  return launch<float>(q, k, v, seg, o, B, H, L, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, seg, o, lse, B, H, L, scale, s);
+  return launch<float>(q, k, v, seg, o, lse, B, H, L, scale, s);
 }

@@ -1,11 +1,11 @@
-"""Superpoint transformer decoder with unified multi-dataset heads, eval
-forward.
+"""Superpoint transformer decoder with unified multi-dataset heads.
 
 The port of the JAX package's ``models/decoder.py``: an input projection,
 N x (self-attention + FFN), post-norm, and the per-dataset class / box heads
 after the projection and after every layer (L = N + 1 output sets). The
-attention runs the Hopper flash-attention kernel (``ops/attention.py``) on
-the card. Flax conventions kept: ``nn.gelu`` is the tanh approximation,
+attention runs the Hopper flash-attention kernels (``ops/attention.py``: K3
+forward, K3-dkv and K3-dq backward) on the card. Dropout is 0.0 in every
+config and is not ported. Flax conventions kept: ``nn.gelu`` is the tanh approximation,
 ``nn.LayerNorm`` eps is 1e-6, masked class columns are -1e9.
 """
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import flash_attention_cuda
+from ..ops.attention import flash_attention
 
 NEG_INF = -1e9
 LN_EPS = 1e-6
@@ -58,7 +58,7 @@ class Attention(nn.Module):
             y = linear(x, layer, self.dtype).view(b, length, h, hd)
             return y.transpose(1, 2).contiguous()
 
-        o = flash_attention_cuda(
+        o = flash_attention(
             heads(self.query), heads(self.key), heads(self.value), seg,
             1.0 / (hd ** 0.5),
         )

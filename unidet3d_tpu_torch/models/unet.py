@@ -1,4 +1,4 @@
-"""Sparse-convolutional 3D U-Net backbone, eval forward.
+"""Sparse-convolutional 3D U-Net backbone.
 
 The port of the JAX package's ``models/unet.py`` (SubmConv, ResidualBlock,
 SpConvUNet, UNetBackbone): a 5-level residual U-Net over the host-built voxel
@@ -8,8 +8,13 @@ that ``weights.from_flax`` is a mechanical renaming.
 
 Every conv and the 1x1 identity branch take features and weights cast to the
 compute dtype and accumulate in fp32. The 37 submanifold convs run the
-Hopper kernel (``ops/subm_conv_cuda.py``) on the card; the strided and
-inverse convs stay PyTorch matmuls, as the JAX package left them to XLA.
+Hopper kernels on the card through ``SubmConvFunction`` (``ops/
+subm_conv_cuda.py``: K1 forward, K1' input gradient, K2 weight gradient);
+the strided and inverse convs stay PyTorch matmuls, as the JAX package left
+them to XLA. ``train`` selects the batch norms' masked batch moments (and
+running-statistic updates) over their running statistics. The JAX package
+rematerialises the residual blocks in training to save TPU memory; that
+changes no number and is not done here.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from torch import nn
 
 from ..ops.gridpack import GridPack
 from ..ops.sparse_conv import inverse_conv, strided_conv
-from ..ops.subm_conv_cuda import subm_conv_cuda
+from ..ops.subm_conv_cuda import SubmConvFunction
 from .norm import MaskedBatchNorm
 
 
@@ -31,7 +36,8 @@ def mm_fp32(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
 
 
 class SubmConv(nn.Module):
-    """Submanifold 3x3x3 conv (bias-free), weight (27, Cin, Cout)."""
+    """Submanifold 3x3x3 conv (bias-free), fp32 master weight (27, Cin, Cout),
+    computed in `dtype`."""
 
     def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype):
         super().__init__()
@@ -39,11 +45,8 @@ class SubmConv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(27, in_channels, out_channels))
 
     def forward(self, x, neighbors, n_valid: int):
-        return subm_conv_cuda(
-            x.to(self.dtype).contiguous(),
-            neighbors,
-            self.weight.to(self.dtype).contiguous(),
-            n_valid,
+        return SubmConvFunction.apply(
+            x.to(self.dtype).contiguous(), neighbors, self.weight, n_valid
         )
 
 
@@ -63,12 +66,12 @@ class ResidualBlock(nn.Module):
         self.norm2 = MaskedBatchNorm(out_channels)
         self.conv2 = SubmConv(out_channels, out_channels, dtype)
 
-    def forward(self, x, neighbors, n_valid: int):
+    def forward(self, x, mask, neighbors, n_valid: int, train: bool):
         identity = x
         if self.i_branch is not None:
             identity = mm_fp32(x, self.i_branch, self.dtype)
-        h = self.conv1(F.relu(self.norm1(x)), neighbors, n_valid)
-        h = self.conv2(F.relu(self.norm2(h)), neighbors, n_valid)
+        h = self.conv1(F.relu(self.norm1(x, mask, train)), neighbors, n_valid)
+        h = self.conv2(F.relu(self.norm2(h, mask, train)), neighbors, n_valid)
         return h + identity
 
 
@@ -101,16 +104,16 @@ class SpConvUNet(nn.Module):
                 cin = 2 * c if i == 0 else c
                 self.add_module(f"level{lvl}_tail{i}", ResidualBlock(cin, c, dtype))
 
-    def forward(self, x, pack: GridPack):
+    def forward(self, x, pack: GridPack, train: bool = False):
         levels = len(self.planes)
         skips = []
         for lvl in range(levels):
-            nbr, n = pack.neighbors[lvl], pack.n_valid[lvl]
+            mask, nbr, n = pack.valid[lvl], pack.neighbors[lvl], pack.n_valid[lvl]
             for i in range(self.block_reps):
-                x = getattr(self, f"level{lvl}_block{i}")(x, nbr, n)
+                x = getattr(self, f"level{lvl}_block{i}")(x, mask, nbr, n, train)
             if lvl < levels - 1:
                 skips.append(x)
-                h = F.relu(getattr(self, f"level{lvl}_down_norm")(x))
+                h = F.relu(getattr(self, f"level{lvl}_down_norm")(x, mask, train))
                 x = strided_conv(
                     h.to(self.dtype),
                     pack.parent[lvl],
@@ -120,8 +123,10 @@ class SpConvUNet(nn.Module):
                     n_valid=n,
                 )
         for lvl in range(levels - 2, -1, -1):
-            nbr, n = pack.neighbors[lvl], pack.n_valid[lvl]
-            h = F.relu(getattr(self, f"level{lvl}_up_norm")(x))
+            mask, nbr, n = pack.valid[lvl], pack.neighbors[lvl], pack.n_valid[lvl]
+            # The up-norm sees the coarse level's rows.
+            h = getattr(self, f"level{lvl}_up_norm")(x, pack.valid[lvl + 1], train)
+            h = F.relu(h)
             h = inverse_conv(
                 h.to(self.dtype),
                 pack.parent[lvl],
@@ -131,7 +136,7 @@ class SpConvUNet(nn.Module):
             )
             x = torch.cat([skips[lvl], h], dim=-1)
             for i in range(self.block_reps):
-                x = getattr(self, f"level{lvl}_tail{i}")(x, nbr, n)
+                x = getattr(self, f"level{lvl}_tail{i}")(x, mask, nbr, n, train)
         return x
 
 
@@ -145,11 +150,9 @@ class UNetBackbone(nn.Module):
         self.unet = SpConvUNet(num_planes, dtype)
         self.output_norm = MaskedBatchNorm(num_planes[0])
 
-    def forward(self, vox_feats, pack: GridPack):
-        n0 = pack.n_valid[0]
-        x = self.input_conv(vox_feats, pack.neighbors[0], n0)
-        x = self.unet(x, pack)
-        x = F.relu(self.output_norm(x))
+    def forward(self, vox_feats, pack: GridPack, train: bool = False):
+        x = self.input_conv(vox_feats, pack.neighbors[0], pack.n_valid[0])
+        x = self.unet(x, pack, train)
+        x = F.relu(self.output_norm(x, pack.valid[0], train))
         # Zero the padding rows so that downstream pooling stays exact.
-        x[n0:] = 0.0
-        return x
+        return torch.where(pack.valid[0][:, None], x, 0.0)
