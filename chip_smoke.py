@@ -4,40 +4,50 @@ NVIDIA GPU. Run from the repository root on a machine with the card and nvcc:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the Hopper kernels (subm conv forward K1 and weight gradient K2,
-     flash attention forward K3 and backward K3-dkv / K3-dq) with nvcc, one
-     process per source, all at once;
-  2. K1, the submanifold conv, against its plain PyTorch version at every
+  1. build the Hopper kernels (subm conv forward K1, templated on the modes
+     of the conv-bottleneck probe P1, and weight gradient K2, flash attention
+     forward K3 and backward K3-dkv / K3-dq) with nvcc, one process per
+     source, all at once;
+  2. P1, the conv-bottleneck probe, through its tool
+     (`unidet3d_tpu_torch/tools/probe_conv_bottleneck.py`): one call of each
+     of its four modes (full, gather_only, no_gather, no_table) with the
+     launches counted, each mode against its plain version (rtol = atol =
+     1e-3) and full against K1 bit for bit, at the probe's shape (one
+     131,072-point scene, seed 5, level 0, 32 -> 32, bf16), then the
+     bisection: each mode's time per probe call beside its bound, its plain
+     version's and its library call's, and the gaps between the modes;
+  3. K1, the submanifold conv, against its plain PyTorch version at every
      distinct (level, Cin, Cout) shape of the 37 convs of one forward, on the
      neighbor tables of 4 synthetic 131k-point scenes (the production eval
      group), bf16 inputs;
-  3. K3, the segment-masked flash attention, against its plain version at
+  4. K3, the segment-masked flash attention, against its plain version at
      B=4, H=8, Q=3072, head dim 32, bf16;
-  4. the whole eval forward on the card (through K1 and K3) against the same
+  5. the whole eval forward on the card (through K1 and K3) against the same
      forward on the CPU (plain versions), fp32, one 16k-point scene;
-  5. the production eval path at full width, bf16: collate -> to_device ->
+  6. the production eval path at full width, bf16: collate -> to_device ->
      forward -> predict_batch on the 4 scenes, with the kernel launches of
-     one run counted (37 K1 and 6 K3 per forward) and the warm group time,
-     then one group under torch.profiler (device time by kernel, idle share);
-  6. K1, K1' (the conv input gradient: K1 on the mirrored weights) and K2
+     one run counted (37 K1 and 6 K3 per forward, no probe) and the warm
+     group time, then one group under torch.profiler (device time by kernel,
+     idle share);
+  7. K1, K1' (the conv input gradient: K1 on the mirrored weights) and K2
      (the conv weight gradient) against their plain versions at every
      distinct (level, Cin, Cout) of the training step, on the neighbor
-     tables of the 8-scene training batch, bf16 (phase 2's code);
-  7. K3 with its logsumexp, and K3-dkv / K3-dq against the plain backward, at
-     B=8, H=8, L=3072, head dim 32, in bf16 and in fp32 (phase 3's code);
-  8. one fp32 training step on the card against the same step on the CPU,
+     tables of the 8-scene training batch, bf16 (phase 3's code);
+  8. K3 with its logsumexp, and K3-dkv / K3-dq against the plain backward, at
+     B=8, H=8, L=3072, head dim 32, in bf16 and in fp32 (phase 4's code);
+  9. one fp32 training step on the card against the same step on the CPU,
      at full width on two small scenes: loss and every gradient, with the
      card's run-to-run noise read first and the held step run in PyTorch's
      deterministic mode;
-  9. the production training step at full width, bf16: 8 synthetic
+ 10. the production training step at full width, bf16: 8 synthetic
      131k-point scenes (4 with ScanNet's flags, 4 with MultiScan's) with
      ground truth, 6 steps of make_train_step on the same collated batch,
      the kernel launches of every step counted (K1 37, K1' 36, K2 37, K3 6,
-     K3-dkv 6, K3-dq 6), a falling loss, the warm step split into H2D,
-     forward + loss, backward and optimizer, then one step under
+     K3-dkv 6, K3-dq 6, no probe), a falling loss, the warm step split into
+     H2D, forward + loss, backward and optimizer, then one step under
      torch.profiler;
- 10. the `kernels` JSON line (per training step), the card's name and power
-     limit, and the final JSON line.
+ 11. the `kernels` JSON line (per training step; the probe's modes per probe
+     call), the card's name and power limit, and the final JSON line.
 Times are CUDA-event means or synchronised host-clock medians on the card in
 this run.
 """
@@ -45,7 +55,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -57,6 +66,7 @@ from unidet3d_tpu_torch.core.class_table import build_class_table
 from unidet3d_tpu_torch.core.config import DATASETS_CLASSES, default_config
 from unidet3d_tpu_torch.data.batcher import collate, gt_to_device, to_device
 from unidet3d_tpu_torch.data.synthetic import stripe_superpoints, synthetic_scene
+from unidet3d_tpu_torch.device import card_line, cuda_ms
 from unidet3d_tpu_torch.losses.criterion import match_scene
 from unidet3d_tpu_torch.models.detector import UniDet3D, detection_loss, prepare_gt
 from unidet3d_tpu_torch.models.postprocess import predict_batch
@@ -68,6 +78,8 @@ from unidet3d_tpu_torch.ops.attention import (
     flash_attention_dkv_cuda,
     flash_attention_dq_cuda,
 )
+from unidet3d_tpu_torch.ops.probe_conv import MODES as PROBE_MODES
+from unidet3d_tpu_torch.ops.probe_conv import probe_conv_cuda
 from unidet3d_tpu_torch.ops.sparse_conv import subm_conv, subm_conv_dgrad, subm_conv_wgrad
 from unidet3d_tpu_torch.ops.subm_conv_cuda import (
     subm_conv_cuda,
@@ -75,6 +87,7 @@ from unidet3d_tpu_torch.ops.subm_conv_cuda import (
     subm_conv_wgrad_cuda,
 )
 from unidet3d_tpu_torch.parallel.train_step import make_train_step
+from unidet3d_tpu_torch.tools.probe_conv_bottleneck import measure, probe_inputs, run_modes
 from unidet3d_tpu_torch.train.optim import make_optimizer
 from unidet3d_tpu_torch.weights import seeded_init_
 
@@ -97,9 +110,12 @@ COUNTERS = {
     "flash_attention_dkv": flash_attention_dkv_cuda,
     "flash_attention_dq": flash_attention_dq_cuda,
 }
-TRAIN_LAUNCHES = {"subm_conv": 37, "subm_conv_dgrad": 36, "subm_conv_wgrad": 37,
-                  "flash_attention": 6, "flash_attention_dkv": 6,
-                  "flash_attention_dq": 6}
+# The probe's modes, by their names in the `kernels` line; one wrapper counts
+# the launches of each mode.
+PROBES = {f"probe_conv_{mode}": mode for mode in PROBE_MODES}
+NO_LAUNCHES = dict.fromkeys([*COUNTERS, *PROBES], 0)
+TRAIN_LAUNCHES = dict(NO_LAUNCHES, subm_conv=37, subm_conv_dgrad=36, subm_conv_wgrad=37,
+                      flash_attention=6, flash_attention_dkv=6, flash_attention_dq=6)
 # One bf16 ulp relative to the value (8-bit mantissa): two bf16 results of
 # the same fp32 sums taken in another order differ by at most this.
 BF16_ULP = 2.0 ** -7
@@ -107,7 +123,7 @@ BF16_ULP = 2.0 ** -7
 # of the card step with PyTorch's default algorithms (atomic sums) differ from
 # each other in the backbone's gradients about 300x more, relative to the
 # tensor, than in the rest's (decoder, heads: reached first by the backward),
-# as much as the card differs from the CPU. Phase 8 prints that noise over
+# as much as the card differs from the CPU. Phase 9 prints that noise over
 # NOISE_STEPS runs in every run (PERF.md keeps the readings); each bound is
 # about 3x it.
 NOISE_STEPS = 6
@@ -118,32 +134,13 @@ HEAD_RTOL = 1e-4  # max|a - b| <= HEAD_RTOL max|b| + 1e-8
 def reset_counts():
     for fn in COUNTERS.values():
         fn.launches = 0
+    probe_conv_cuda.launches = dict.fromkeys(PROBE_MODES, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTERS.items()}
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps=5, warmup=1) -> float:
-    """Mean ms per call over `reps` back-to-back calls, CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    counts.update({name: probe_conv_cuda.launches[mode] for name, mode in PROBES.items()})
+    return counts
 
 
 def make_scenes(n_scenes, n_points, seed0=0):
@@ -174,6 +171,22 @@ def phase_build():
         regs = [ln.strip() for ln in log.splitlines() if "Used" in ln]
         print(f"[build] {name}: {'; '.join(regs)}")
     print(f"[build] nvcc for {list(reports) or 'nothing (cached)'}: {secs:.1f} s")
+
+
+def phase_probe(card):
+    """P1 through its tool's functions: one call of each mode on the
+    probe's inputs with the launches counted from zero (the probe's own
+    path), then each mode held against its plain version and full against
+    K1's bits, and the bisection timed. Returns {kernels-line name: numbers
+    per probe call, with that run's launches}."""
+    inputs = probe_inputs(device="cuda")
+    reset_counts()
+    outs = run_modes(inputs)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    assert launches == dict(NO_LAUNCHES, **dict.fromkeys(PROBES, 1)), launches
+    res = measure(inputs, outs, card)
+    return {name: dict(res[mode], launches=launches[name]) for name, mode in PROBES.items()}
 
 
 def phase_conv(pack_np, planes, card, backward):
@@ -422,8 +435,7 @@ def phase_production(samples, table, card, reps=3):
     reset_counts()
     out, aux, det = run()  # the main-path run whose launches are counted
     launches = read_counts()
-    assert launches == dict(dict.fromkeys(COUNTERS, 0), subm_conv=37,
-                            flash_attention=6), launches
+    assert launches == dict(NO_LAUNCHES, subm_conv=37, flash_attention=6), launches
     nq = cfg.max_superpoints
     assert out.cls_logits.shape == (cfg.num_layers + 1, GROUP, nq, 85)
     assert out.boxes.shape == (cfg.num_layers + 1, GROUP, nq, 7)
@@ -712,6 +724,7 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
 
     phase_build()
+    probe = phase_probe(card)
     cfg = default_config()
     table = build_class_table(DATASETS_CLASSES)
     samples = make_scenes(GROUP, SCENE_POINTS)
@@ -761,8 +774,19 @@ def main() -> int:
             launches=launches[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
             plain_ms=num["plain_ms"], bound_ms=num["bound_ms"],
             bound_by=num["bound_by"], library_ms=num["library_ms"]))
+    for name, num in probe.items():
+        kernels.append(dict(
+            name=name, route="cuda", source="unidet3d_tpu_torch/csrc/subm_conv.cu",
+            replaces="scripts/probe_conv_bottleneck.py:128",
+            **{key: num[key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms")}))
     print("[kernels] launches are one production training step's; ms, plain_ms, "
-          "bound_ms and library_ms are per training step at its shapes (8 scenes)")
+          "bound_ms and library_ms are per training step at its shapes (8 scenes). "
+          "probe_conv_*: on no training or eval path (0 launches per step, asserted); "
+          "launches from one run of the probe's modes, every number per probe call "
+          "(one 131,072-point scene, level 0, 32->32, bf16; bound: the bytes over 3.35 TB/s "
+          "against the operations the mode's function needs over 989 TFLOP/s bf16; "
+          "library: index_select+mm, embedding_bag, einsum, einsum)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

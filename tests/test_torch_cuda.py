@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 K1 (conv forward), K1' (conv input gradient), K2 (conv weight gradient), K3
-(attention forward, with its logsumexp) and K3-dkv / K3-dq (attention
-backward), plus the two autograd Functions against their CPU runs.
+(attention forward, with its logsumexp), K3-dkv / K3-dq (attention
+backward) and the four modes of the conv-bottleneck probe, plus the two
+autograd Functions against their CPU runs.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) and nvcc; elsewhere it
 skips. Run on the card from the repository root (the JAX conftest is not
@@ -21,6 +22,8 @@ from unidet3d_tpu_torch.ops.attention import (
     flash_attention_dkv_cuda,
     flash_attention_dq_cuda,
 )
+from unidet3d_tpu_torch.ops.probe_conv import MODES as PROBE_MODES
+from unidet3d_tpu_torch.ops.probe_conv import probe_conv_cuda, probe_conv_plain
 from unidet3d_tpu_torch.ops.sparse_conv import subm_conv, subm_conv_dgrad, subm_conv_wgrad
 from unidet3d_tpu_torch.ops.subm_conv_cuda import (
     SubmConvFunction,
@@ -243,6 +246,33 @@ def test_flash_attention_function_on_the_card_matches_cpu(dev):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("mode", PROBE_MODES)
+@pytest.mark.parametrize("cin,cout,dtype", [(32, 32, torch.bfloat16), (96, 96, torch.float32)])
+def test_probe_modes_match_plain(dev, mode, cin, cout, dtype):
+    rng = np.random.RandomState(cin + len(mode))
+    v, n_valid = 3000, 2711  # ragged: neither is a multiple of the 64-row tile
+    nbr = _nbr_table(rng, v, n_valid)
+    nbr[640:1024] = v  # six whole tiles with no neighbor: every offset skipped
+    nbr = torch.from_numpy(nbr).to(dev)
+    feat = torch.from_numpy(rng.randn(v, cin).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy(
+        (rng.randn(27, cin, cout) / np.sqrt(27 * cin)).astype(np.float32)
+    ).to(dev, dtype)
+    before = dict(probe_conv_cuda.launches)
+    out = probe_conv_cuda(mode, feat, nbr, w, n_valid)
+    torch.cuda.synchronize()
+    assert probe_conv_cuda.launches == dict(before, **{mode: before[mode] + 1})
+    ref = probe_conv_plain(mode, feat, nbr, w, n_valid)
+    # fp32 sums of the same products in another order (gather_only: the same
+    # adds in the same order).
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert torch.all(out[n_valid:] == 0)
+    if mode != "no_table":
+        assert torch.all(out[640:1024] == 0)
+    if mode == "full":  # K1's body: K1's bits
+        assert torch.equal(out, subm_conv_cuda(feat, nbr, w, n_valid))
+
+
 def test_wrappers_reject_bad_inputs(dev):
     feat = torch.zeros(10, 8, device=dev)
     nbr = torch.zeros(10, 27, dtype=torch.int64, device=dev)
@@ -256,6 +286,10 @@ def test_wrappers_reject_bad_inputs(dev):
         subm_conv_wgrad_cuda(feat, nbr32, torch.zeros(10, 4, device=dev).bfloat16(), 10)
     with pytest.raises(ValueError):  # n_valid past V
         subm_conv_wgrad_cuda(feat, nbr32, torch.zeros(10, 4, device=dev), 11)
+    with pytest.raises(ValueError):  # gather_only needs Cin == Cout
+        probe_conv_cuda("gather_only", feat, nbr32, w, 10)
+    with pytest.raises(ValueError):  # not a mode
+        probe_conv_cuda("dma_only", feat, nbr32, torch.zeros(27, 8, 8, device=dev), 10)
     q = torch.zeros(1, 1, 8, 16, device=dev)
     seg = torch.ones(1, 8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):

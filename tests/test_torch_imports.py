@@ -35,6 +35,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     report = json.loads(res.stdout.strip().splitlines()[-1])
     assert "unidet3d_tpu_torch.models.detector" in report["imported"]
+    assert "unidet3d_tpu_torch.tools.probe_conv_bottleneck" in report["imported"]
     assert report["bad"] == []
 
 

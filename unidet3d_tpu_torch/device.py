@@ -1,8 +1,34 @@
-"""Device selection for the port's entry points: the card unless the caller
-asks for the CPU."""
+"""Device selection for the port's entry points (the card unless the caller
+asks for the CPU), and the card's name and kernel timing for the programs
+that measure on it."""
 from __future__ import annotations
 
+import subprocess
+
 import torch
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps=5, warmup=1) -> float:
+    """Mean ms per call over `reps` back-to-back calls, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -36,9 +36,9 @@ _WGRAD_TARGET_BLOCKS = 16 * 132
 def _kernel():
     fn = cuda_build.load("subm_conv").subm_conv_fwd
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -80,8 +80,10 @@ def _check(rows, neighbors, n_valid, **tensors):
     return n_valid
 
 
-def _launch_k1(features, neighbors, weights, n_valid, name) -> torch.Tensor:
-    """Checks, allocates and launches K1; the callers count the launch."""
+def _launch_k1(features, neighbors, weights, n_valid, name, mode=0) -> torch.Tensor:
+    """Checks, allocates and launches K1's kernel in `mode` (0: the conv;
+    1-3: the probe's stripped modes, ops/probe_conv.py); the callers count
+    the launch."""
     v, cin = features.shape
     if weights.dim() != 3 or weights.shape[:2] != (27, cin):
         raise ValueError(f"weights {tuple(weights.shape)} != (27, {cin}, Cout)")
@@ -98,7 +100,7 @@ def _launch_k1(features, neighbors, weights, n_valid, name) -> torch.Tensor:
         return out
     with torch.cuda.device(features.device):
         err = _kernel()(
-            features.data_ptr(), neighbors.data_ptr(), weights.data_ptr(),
+            mode, features.data_ptr(), neighbors.data_ptr(), weights.data_ptr(),
             out.data_ptr(), v, n_valid, cin, cout, _DTYPES[features.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
