@@ -35,6 +35,9 @@ Phases (any failure raises and the script exits non-zero):
      tables of the 8-scene training batch, bf16 (phase 3's code);
   8. K3 with its logsumexp, and K3-dkv / K3-dq against the plain backward, at
      B=8, H=8, L=3072, head dim 32, in bf16 and in fp32 (phase 4's code);
+     the bf16 kernels' and SDPA's backward against the fp32 plain backward
+     (each kernel within twice SDPA's error), and the backward kernels'
+     registers, spills and shared memory from ptxas;
   9. one fp32 training step on the card against the same step on the CPU,
      at full width on two small scenes: loss and every gradient, with the
      card's run-to-run noise read first and the held step run in PyTorch's
@@ -66,7 +69,7 @@ from unidet3d_tpu_torch.core.class_table import build_class_table
 from unidet3d_tpu_torch.core.config import DATASETS_CLASSES, default_config
 from unidet3d_tpu_torch.data.batcher import collate, gt_to_device, to_device
 from unidet3d_tpu_torch.data.synthetic import stripe_superpoints, synthetic_scene
-from unidet3d_tpu_torch.device import card_line, cuda_ms
+from unidet3d_tpu_torch.device import card_line, cuda_ms, sm_clock_hz
 from unidet3d_tpu_torch.losses.criterion import match_scene
 from unidet3d_tpu_torch.models.detector import UniDet3D, detection_loss, prepare_gt
 from unidet3d_tpu_torch.models.postprocess import predict_batch
@@ -74,6 +77,7 @@ from unidet3d_tpu_torch.ops import cuda_build
 from unidet3d_tpu_torch.ops.attention import (
     attention_bwd_plain,
     attention_plain,
+    attention_tol,
     flash_attention_cuda,
     flash_attention_dkv_cuda,
     flash_attention_dq_cuda,
@@ -116,9 +120,8 @@ PROBES = {f"probe_conv_{mode}": mode for mode in PROBE_MODES}
 NO_LAUNCHES = dict.fromkeys([*COUNTERS, *PROBES], 0)
 TRAIN_LAUNCHES = dict(NO_LAUNCHES, subm_conv=37, subm_conv_dgrad=36, subm_conv_wgrad=37,
                       flash_attention=6, flash_attention_dkv=6, flash_attention_dq=6)
-# One bf16 ulp relative to the value (8-bit mantissa): two bf16 results of
-# the same fp32 sums taken in another order differ by at most this.
-BF16_ULP = 2.0 ** -7
+# exp2 results per clock per SM of the special-function units (sm_90).
+SFU_EXP_PER_CLOCK = 16
 # The fp32 card training step against the CPU's, per gradient tensor. Runs
 # of the card step with PyTorch's default algorithms (atomic sums) differ from
 # each other in the backbone's gradients about 300x more, relative to the
@@ -163,14 +166,22 @@ def conv_shapes(planes):
     return shapes
 
 
+def ptxas_line(name, stats) -> str:
+    return (f"{name} {stats.get('registers')} registers, spill stores "
+            f"{stats.get('spill_stores')} B, spill loads {stats.get('spill_loads')} B, "
+            f"smem {stats.get('smem')} B")
+
+
 def phase_build():
+    """Builds every kernel; returns {source: ptxas_report} of those built."""
     t0 = time.time()
-    reports = cuda_build.build()
+    reports = {name: cuda_build.ptxas_report(log)
+               for name, log in cuda_build.build().items()}
     secs = time.time() - t0
-    for name, log in reports.items():
-        regs = [ln.strip() for ln in log.splitlines() if "Used" in ln]
-        print(f"[build] {name}: {'; '.join(regs)}")
+    for name, kernels in reports.items():
+        print(f"[build] {name}: " + "; ".join(ptxas_line(*kern) for kern in kernels))
     print(f"[build] nvcc for {list(reports) or 'nothing (cached)'}: {secs:.1f} s")
+    return reports
 
 
 def phase_probe(card):
@@ -279,45 +290,64 @@ def phase_conv(pack_np, planes, card, backward):
     return tot
 
 
-def check_attention(q, k, v, do, seg, scale, backward, tol):
+def check_attention(q, k, v, do, seg, scale, backward):
     """K3 (with `backward`: its logsumexp, K3-dkv and K3-dq) on q, k, v, do
-    against the plain versions, each output within `tol(ref)`, a dict of
-    rtol and atol.
-    Returns the max abs error per kernel, and the forward's o and lse."""
+    against the plain versions, each output within `attention_tol(ref)`.
+    Returns the max abs error per kernel (with `backward` also per output:
+    dq, dk, dv), the forward's o and lse, and with `backward` the kernels'
+    (dq, dk, dv)."""
     o, lse = flash_attention_cuda(q, k, v, seg, scale, return_lse=True)
     ref_o, ref_lse = attention_plain(q, k, v, seg, scale, return_lse=True)
     torch.cuda.synchronize()
-    torch.testing.assert_close(o.float(), ref_o.float(), **tol(ref_o), msg="o")
+    torch.testing.assert_close(o.float(), ref_o.float(), **attention_tol(ref_o), msg="o")
     errs = {"flash_attention": (o.float() - ref_o.float()).abs().max().item()}
     if not backward:
-        return errs, o, lse
+        return errs, o, lse, None
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
     di = (o.float() * do.float()).sum(-1)
     dk, dv = flash_attention_dkv_cuda(q, k, v, seg, do, lse, di, scale)
     dq = flash_attention_dq_cuda(q, k, v, seg, do, lse, di, scale)
     ref = attention_bwd_plain(q, k, v, seg, do, lse, di, scale)
     torch.cuda.synchronize()
-    diff = {}
     for name, mine, r in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
         assert mine.dtype == q.dtype, name
-        torch.testing.assert_close(mine.float(), r.float(), **tol(r), msg=name)
-        diff[name] = (mine.float() - r.float()).abs().max().item()
-    errs["flash_attention_dq"] = diff["dq"]
-    errs["flash_attention_dkv"] = max(diff["dk"], diff["dv"])
-    return errs, o, lse
+        torch.testing.assert_close(mine.float(), r.float(), **attention_tol(r),
+                                   msg=lambda m, n=name: f"{n}: {m}")
+        errs[name] = (mine.float() - r.float()).abs().max().item()
+    errs["flash_attention_dq"] = errs["dq"]
+    errs["flash_attention_dkv"] = max(errs["dk"], errs["dv"])
+    return errs, o, lse, (dq, dk, dv)
 
 
-def bf16_tol(ref):
-    """One bf16 ulp of each value plus 1e-4 of the largest: both sides round
-    the same fp32 sums, taken in another order, to bf16."""
-    return dict(rtol=BF16_ULP, atol=1e-4 * ref.float().abs().max().item())
+def sdpa_backward_check(q, k, v, do, seg, scale, grads, sdpa, errs, card):
+    """The bf16 kernels' (dq, dk, dv) `grads` and SDPA's, `sdpa`, each
+    against the fp32 plain backward of the same bf16 inputs (the exact
+    backward of those inputs); asserts that each kernel output's error
+    against its plain version (`errs`) is at most twice SDPA's error there."""
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    o32, lse32 = attention_plain(q32, k32, v32, seg, scale, return_lse=True)
+    ref32 = attention_bwd_plain(q32, k32, v32, seg, do32, lse32, (o32 * do32).sum(-1),
+                                scale)
+    del q32, k32, v32, do32, o32
+    mine32, sdpa32 = ([(a.float() - r).abs().max().item() for a, r in zip(out, ref32)]
+                      for out in (grads, sdpa))
+    fmt = lambda xs: ", ".join(f"{x:.3e}" for x in xs)  # noqa: E731
+    print(f"[K3-train] max abs error (dq, dk, dv) against the fp32 plain backward: "
+          f"kernels {fmt(mine32)}, SDPA {fmt(sdpa32)}; kernels against the bf16 plain "
+          f"version {fmt(errs[n] for n in ('dq', 'dk', 'dv'))} | {card}")
+    for name, sdpa_err in zip(("dq", "dk", "dv"), sdpa32):
+        assert errs[name] <= 2 * sdpa_err, (name, errs[name], sdpa_err)
 
 
-def phase_attention(n_valid, s, card, backward):
+def phase_attention(n_valid, s, card, backward, ptxas=()):
     """K3 -- and with `backward` also its logsumexp, K3-dkv and K3-dq --
     against the plain versions at the decoder's shape (B = len(n_valid),
     H=8, L=s, head dim 32) in bf16, and with `backward` the same kernels'
-    fp32 route at the same shape. Returns per-call numbers per kernel."""
+    fp32 route at the same shape, the bf16 kernels' and SDPA's backward
+    against the fp32 plain backward, and the backward kernels' registers,
+    spills and shared memory (`ptxas`: their ptxas_report entries). Returns
+    per-call numbers per kernel."""
+    tag = "K3-train" if backward else "K3"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     b, h, hd = len(n_valid), 8, 32
@@ -327,22 +357,28 @@ def phase_attention(n_valid, s, card, backward):
         seg[i, :n] = 1
     scale = 1.0 / hd ** 0.5
     if backward:  # fp32: the same sums in another order, 1e-4 as in the card tests
-        errs32 = check_attention(*inputs, seg, scale, True,
-                                 lambda ref: dict(rtol=1e-4, atol=1e-4))[0]
+        errs32 = check_attention(*inputs, seg, scale, True)[0]
     q, k, v, do = (x.to(torch.bfloat16) for x in inputs)
     del inputs
-    errs, o, lse = check_attention(q, k, v, do, seg, scale, backward, bf16_tol)
+    errs, o, lse, grads = check_attention(q, k, v, do, seg, scale, backward)
     di = (o.float() * do.float()).sum(-1)
-
     mask = seg[:, None, :, None] == seg[:, None, None, :]
+    if backward:
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=scale)
+        sdpa_backward_check(q, k, v, do, seg, scale, grads,
+                            torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True),
+                            errs, card)
+        del grads
+        for name, stats in ptxas:
+            print(f"[{tag}] ptxas: {ptxas_line(name, stats)}")
+
     times = {"flash_attention": (
         cuda_ms(lambda: flash_attention_cuda(q, k, v, seg, scale, return_lse=backward)),
         cuda_ms(lambda: attention_plain(q, k, v, seg, scale, return_lse=backward), reps=2),
         cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                        scale=scale), reps=2))}
     if backward:
-        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=scale)
         times["flash_attention_dkv"] = (
             cuda_ms(lambda: flash_attention_dkv_cuda(q, k, v, seg, do, lse, di, scale)),
             cuda_ms(lambda: attention_bwd_plain(q, k, v, seg, do, lse, di, scale), reps=2),
@@ -351,21 +387,23 @@ def phase_attention(n_valid, s, card, backward):
         times["flash_attention_dq"] = (
             cuda_ms(lambda: flash_attention_dq_cuda(q, k, v, seg, do, lse, di, scale)),
             *times["flash_attention_dkv"][1:])
-    # Pairs the masks need, and the products per pair each kernel's output
-    # needs: forward s, pv (2); dkv s, dp, dv, dk (4); dq s, dp, dq (3).
+    # Pairs the masks need; per pair, the products each kernel's output needs
+    # (forward s, pv: 2; dkv s, dp, dv, dk: 4; dq s, dp, dq: 3) and one exp,
+    # which the SFUs take at 16 per clock per SM.
     pairs = sum(n * n + (s - n) * (s - n) for n in n_valid) * h
+    exps_ms = pairs / (torch.cuda.get_device_properties(0).multi_processor_count
+                       * SFU_EXP_PER_CLOCK * sm_clock_hz()) * 1e3
     bhs = b * h * s
     work = {
         "flash_attention": (2, 4 * bhs * hd * 2 + (bhs * 4 if backward else 0) + b * s * 4),
         "flash_attention_dkv": (4, 6 * bhs * hd * 2 + 2 * bhs * 4 + b * s * 4),
         "flash_attention_dq": (3, 5 * bhs * hd * 2 + 2 * bhs * 4 + b * s * 4),
     }
-    tag = "K3-train" if backward else "K3"
     out = {}
     for name, (ms, plain_ms, library_ms) in times.items():
         products, nbytes = work[name]
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2.0 * products * pairs * hd / BF16_FLOPS * 1e3
+        ops_ms = max(2.0 * products * pairs * hd / BF16_FLOPS * 1e3, exps_ms)
         out[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
                          bound_by="bytes" if bytes_ms >= ops_ms else "operations")
@@ -373,7 +411,8 @@ def phase_attention(n_valid, s, card, backward):
         print(f"[{tag}] {name}: B {b} H {h} L {s} valid {list(n_valid)}: bf16 err "
               f"{errs[name]:.2e}{fp32} kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
               f"sdpa {library_ms:.3f} ms bound {out[name]['bound_ms']:.4f} ms per call "
-              f"| {card}")
+              f"(products {2.0 * products * pairs * hd / BF16_FLOPS * 1e3:.4f}, exps "
+              f"{exps_ms:.4f}, bytes {bytes_ms:.4f}) | {card}")
     if backward:
         print(f"[{tag}] the plain and SDPA backward times each cover dq, dk and dv "
               "together; SDPA's are with a boolean mask")
@@ -723,7 +762,7 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
 
-    phase_build()
+    ptxas = phase_build()
     probe = phase_probe(card)
     cfg = default_config()
     table = build_class_table(DATASETS_CLASSES)
@@ -741,7 +780,8 @@ def main() -> int:
     pack_s = time.time() - t0
     conv = phase_conv(pack, cfg.num_planes, card, backward=True)
     n_q = [min(int(s["sp_pts_mask"].max()) + 1, cfg.query_thr) for s in train_samples]
-    attn = phase_attention(n_q, cfg.max_superpoints, card, backward=True)
+    attn = phase_attention(n_q, cfg.max_superpoints, card, backward=True,
+                           ptxas=ptxas.get("attention_bwd", ()))
     phase_train_small(table, card)
     launches = phase_train(batch, gt, pack, pack_s, table, card)
 
@@ -781,7 +821,8 @@ def main() -> int:
             **{key: num[key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")}))
     print("[kernels] launches are one production training step's; ms, plain_ms, "
-          "bound_ms and library_ms are per training step at its shapes (8 scenes). "
+          "bound_ms and library_ms are per training step at its shapes (8 scenes); "
+          "the attention bounds count one exp per pair at 16 per clock per SM. "
           "probe_conv_*: on no training or eval path (0 launches per step, asserted); "
           "launches from one run of the probe's modes, every number per probe call "
           "(one 131,072-point scene, level 0, 32->32, bf16; bound: the bytes over 3.35 TB/s "

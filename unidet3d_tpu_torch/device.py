@@ -16,6 +16,15 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock in Hz, as nvidia-smi gives it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
+
+
 def cuda_ms(fn, reps=5, warmup=1) -> float:
     """Mean ms per call over `reps` back-to-back calls, CUDA events."""
     for _ in range(warmup):

@@ -54,19 +54,41 @@ def attention_plain(q, k, v, seg, sm_scale: float, return_lse: bool = False):
 
 def attention_bwd_plain(q, k, v, seg, do, lse, di, sm_scale: float):
     """The flash-attention backward in plain PyTorch, from the forward's lse:
-    p = exp(s - lse) (0 across segments), ds = p * (do v^T - di),
-    dq = ds k * scale, dk = ds^T q * scale, dv = p^T do; fp32 throughout.
+    p = exp(s - lse) (0 across segments), ds = p * (do v^T - di) * scale,
+    dv = p^T do, dq = ds k, dk = ds^T q; fp32 sums.
+
+    It rounds where the TPU kernels do (``flash_attention.py:900``,
+    ``:913-918``, ``:1247-1261``): p to the input dtype before dv, and
+    ds * scale before dq and dk. For fp32 inputs the rounding is the
+    identity.
 
     q, k, v, do: (B, H, L, D); seg: (B, L); lse, di: (B, H, L) fp32 with
     di = rowsum(o * do). Returns (dq, dk, dv) in q's dtype."""
     p = torch.exp(_masked_logits(q, k, seg, sm_scale) - lse[..., None])
     do32 = do.float()
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), do32)
     dp = torch.einsum("bhqd,bhkd->bhqk", do32, v.float())
-    ds = p * (dp - di[..., None])
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * sm_scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sm_scale
+    ds = (p * (dp - di[..., None]) * sm_scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def attention_tol(ref) -> dict:
+    """rtol and atol for a card kernel's output against its plain version
+    `ref` (in the inputs' dtype), as ``torch.testing.assert_close`` takes
+    them. fp32: 1e-4, the same fp32 sums in another order. bf16: one bf16
+    ulp of each value (2^-7: 8 bits of mantissa) for the output's own
+    rounding, plus 2^-8 of the largest value: the backward rounds p and
+    ds * scale to bf16 before its products on both sides, and where the two
+    fp32 values straddle a rounding point (sums in another order, the
+    kernel's ex2.approx) one term moves by one bf16 ulp of itself. On an
+    H100 at the decoder's training shape, 1 to 11 of the 6.3M values of
+    each of dq, dk, dv exceed 1e-4 of the largest value and none 2^-8 of
+    it; a dropped mask or scale misses by ~100 %."""
+    if ref.dtype == torch.float32:
+        return dict(rtol=1e-4, atol=1e-4)
+    return dict(rtol=2.0 ** -7, atol=2.0 ** -8 * ref.float().abs().max().item())
 
 
 @functools.cache

@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -74,6 +75,40 @@ def build(names=KERNELS) -> dict:
     if failed:
         raise RuntimeError("\n".join(failed))
     return reports
+
+
+def _kernel_name(mangled: str) -> str:
+    """The last name of an Itanium-mangled function in namespaces
+    (``_ZN<len><ns>...<len><name>...``), or `mangled` itself."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    at, name = 3, mangled
+    while (length := re.match(r"\d+", mangled[at:])) is not None:
+        start = at + length.end()
+        name = mangled[start:start + int(length[0])]
+        at = start + int(length[0])
+    return name
+
+
+def ptxas_report(log: str) -> list:
+    """Each kernel's resources from a ptxas -v report, in its order:
+    [(name, {"registers", "spill_stores", "spill_loads", "smem"})], the name
+    demangled to its last part (a template's instances share it)."""
+    kernels = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernels.append((_kernel_name(entry[1]), {}))
+        elif kernels:
+            stats = kernels[-1][1]
+            for key, pattern in (("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads"),
+                                 ("registers", r"Used (\d+) registers"),
+                                 ("smem", r"(\d+) bytes smem")):
+                found = re.search(pattern, line)
+                if found:
+                    stats[key] = int(found[1])
+    return kernels
 
 
 @functools.cache
