@@ -7,7 +7,8 @@ Phases (any failure raises and the script exits non-zero):
   1. build the Hopper kernels (subm conv forward K1, templated on the modes
      of the conv-bottleneck probe P1, and weight gradient K2, flash attention
      forward K3 and backward K3-dkv / K3-dq) with nvcc, one process per
-     source, all at once;
+     source, all at once; the bf16 routes of K1 (and K1'), K3, K3-dkv and
+     K3-dq run on the tensor cores (mma.sync), the fp32 routes on FMAs;
   2. P1, the conv-bottleneck probe, through its tool
      (`unidet3d_tpu_torch/tools/probe_conv_bottleneck.py`): one call of each
      of its four modes (full, gather_only, no_gather, no_table) with the
@@ -19,9 +20,12 @@ Phases (any failure raises and the script exits non-zero):
   3. K1, the submanifold conv, against its plain PyTorch version at every
      distinct (level, Cin, Cout) shape of the 37 convs of one forward, on the
      neighbor tables of 4 synthetic 131k-point scenes (the production eval
-     group), bf16 inputs;
+     group), bf16 inputs, bit-equal on a second launch, with the bf16
+     kernel's registers, spills and shared memory per column width;
   4. K3, the segment-masked flash attention, against its plain version at
-     B=4, H=8, Q=3072, head dim 32, bf16;
+     B=4, H=8, Q=3072, head dim 32, bf16, with and without the logsumexp
+     (the same o), bit-equal on a second launch, with its registers, spills
+     and shared memory;
   5. the whole eval forward on the card (through K1 and K3) against the same
      forward on the CPU (plain versions), fp32, one 16k-point scene;
   6. the production eval path at full width, bf16: collate -> to_device ->
@@ -32,7 +36,8 @@ Phases (any failure raises and the script exits non-zero):
   7. K1, K1' (the conv input gradient: K1 on the mirrored weights) and K2
      (the conv weight gradient) against their plain versions at every
      distinct (level, Cin, Cout) of the training step, on the neighbor
-     tables of the 8-scene training batch, bf16 (phase 3's code);
+     tables of the 8-scene training batch, bf16, each bit-equal on a second
+     launch (phase 3's code);
   8. K3 with its logsumexp, and K3-dkv / K3-dq against the plain backward, at
      B=8, H=8, L=3072, head dim 32, in bf16 and in fp32 (phase 4's code);
      the bf16 kernels' and SDPA's backward against the fp32 plain backward
@@ -86,6 +91,7 @@ from unidet3d_tpu_torch.ops.probe_conv import MODES as PROBE_MODES
 from unidet3d_tpu_torch.ops.probe_conv import probe_conv_cuda
 from unidet3d_tpu_torch.ops.sparse_conv import subm_conv, subm_conv_dgrad, subm_conv_wgrad
 from unidet3d_tpu_torch.ops.subm_conv_cuda import (
+    conv_tile,
     subm_conv_cuda,
     subm_conv_dgrad_cuda,
     subm_conv_wgrad_cuda,
@@ -200,18 +206,25 @@ def phase_probe(card):
     return {name: dict(res[mode], launches=launches[name]) for name, mode in PROBES.items()}
 
 
-def phase_conv(pack_np, planes, card, backward):
+def phase_conv(pack_np, planes, card, backward, ptxas=()):
     """K1 -- and with `backward` also K1' and K2 -- against their plain
     versions at each distinct (level, Cin, Cout) of the 37 submanifold
     convs, on this pack's neighbor tables, with bf16 features, weights and
-    cotangents. Returns the totals per kernel over one forward (one
-    training step with `backward`)."""
+    cotangents, each bit-equal on a second launch; prints the bf16 conv
+    kernel's registers, spills and shared memory per column width (`ptxas`:
+    the conv source's ptxas_report entries). Returns the totals per kernel
+    over one forward (one training step with `backward`)."""
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     names = ("subm_conv", "subm_conv_dgrad", "subm_conv_wgrad")[: 3 if backward else 1]
     tag = "conv-train" if backward else "K1"
     tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0) for k in names}
+    for name, stats in ptxas:  # the conv's own instances (mode 0), per width
+        if name.startswith("subm_conv_mma_kernel<") and name.endswith(", 0>"):
+            cols = int(name.split("<")[1].split(",")[0])
+            print(f"[{tag}] ptxas: {ptxas_line(name, stats)} (+ {conv_tile(cols).smem} B "
+                  f"dynamic smem, conv_tile)")
     for (lvl, cin, cout), calls in sorted(conv_shapes(planes).items()):
         nbr = torch.from_numpy(pack_np.neighbors[lvl]).to(dev)
         v, n = nbr.shape[0], pack_np.n_valid[lvl]
@@ -265,6 +278,8 @@ def phase_conv(pack_np, planes, card, backward):
             # the largest entry.
             scale = 1.0 if name != "subm_conv_wgrad" else max(1.0, ref.abs().max().item())
             torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-3 * scale)
+            # No split-K atomics: the same bits on a second launch.
+            assert torch.equal(out, kernel()), f"{name} {cin}->{cout}: not bit-equal on repeat"
             err = (out - ref).abs().max().item()
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             t = tot[name]
@@ -292,14 +307,18 @@ def phase_conv(pack_np, planes, card, backward):
 
 def check_attention(q, k, v, do, seg, scale, backward):
     """K3 (with `backward`: its logsumexp, K3-dkv and K3-dq) on q, k, v, do
-    against the plain versions, each output within `attention_tol(ref)`.
-    Returns the max abs error per kernel (with `backward` also per output:
-    dq, dk, dv), the forward's o and lse, and with `backward` the kernels'
-    (dq, dk, dv)."""
+    against the plain versions, each output within `attention_tol(ref)`; K3
+    gives the same o without the logsumexp and the same bits on a second
+    launch. Returns the max abs error per kernel (with `backward` also per
+    output: dq, dk, dv), the forward's o and lse, and with `backward` the
+    kernels' (dq, dk, dv)."""
     o, lse = flash_attention_cuda(q, k, v, seg, scale, return_lse=True)
     ref_o, ref_lse = attention_plain(q, k, v, seg, scale, return_lse=True)
     torch.cuda.synchronize()
     torch.testing.assert_close(o.float(), ref_o.float(), **attention_tol(ref_o), msg="o")
+    again, lse_again = flash_attention_cuda(q, k, v, seg, scale, return_lse=True)
+    assert torch.equal(o, flash_attention_cuda(q, k, v, seg, scale)), "o differs without lse"
+    assert torch.equal(o, again) and torch.equal(lse, lse_again), "K3 not bit-equal on repeat"
     errs = {"flash_attention": (o.float() - ref_o.float()).abs().max().item()}
     if not backward:
         return errs, o, lse, None
@@ -343,10 +362,10 @@ def phase_attention(n_valid, s, card, backward, ptxas=()):
     """K3 -- and with `backward` also its logsumexp, K3-dkv and K3-dq --
     against the plain versions at the decoder's shape (B = len(n_valid),
     H=8, L=s, head dim 32) in bf16, and with `backward` the same kernels'
-    fp32 route at the same shape, the bf16 kernels' and SDPA's backward
-    against the fp32 plain backward, and the backward kernels' registers,
-    spills and shared memory (`ptxas`: their ptxas_report entries). Returns
-    per-call numbers per kernel."""
+    fp32 route at the same shape and the bf16 kernels' and SDPA's backward
+    against the fp32 plain backward; prints the registers, spills and shared
+    memory of the phase's kernels (`ptxas`: their sources' ptxas_report
+    entries). Returns per-call numbers per kernel."""
     tag = "K3-train" if backward else "K3"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -370,8 +389,8 @@ def phase_attention(n_valid, s, card, backward, ptxas=()):
                             torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True),
                             errs, card)
         del grads
-        for name, stats in ptxas:
-            print(f"[{tag}] ptxas: {ptxas_line(name, stats)}")
+    for name, stats in ptxas:
+        print(f"[{tag}] ptxas: {ptxas_line(name, stats)}")
 
     times = {"flash_attention": (
         cuda_ms(lambda: flash_attention_cuda(q, k, v, seg, scale, return_lse=backward)),
@@ -768,9 +787,11 @@ def main() -> int:
     table = build_class_table(DATASETS_CLASSES)
     samples = make_scenes(GROUP, SCENE_POINTS)
     _, _, pack_np = collate(samples, cfg)
-    phase_conv(pack_np, cfg.num_planes, card, backward=False)
+    phase_conv(pack_np, cfg.num_planes, card, backward=False,
+               ptxas=ptxas.get("subm_conv", ()))
     n_sp = [min(int(s["sp_pts_mask"].max()) + 1, cfg.max_superpoints) for s in samples]
-    phase_attention(n_sp, cfg.max_superpoints, card, backward=False)
+    phase_attention(n_sp, cfg.max_superpoints, card, backward=False,
+                    ptxas=ptxas.get("attention", ()))
     phase_e2e_small(table, card)
     phase_production(samples, table, card)
 

@@ -142,8 +142,9 @@ def test_attention_tol_by_dtype():
 
 def test_ptxas_report_reads_each_kernel():
     """The registers, spills and shared memory that chip_smoke.py prints for
-    the backward kernels, from nvcc's -Xptxas -v output (CUDA 12.8's format,
-    with the hashed anonymous namespace)."""
+    the tensor-core kernels (the backward pair, the forward, the conv), from
+    nvcc's -Xptxas -v output (CUDA 12.8's format, with the hashed anonymous
+    namespace)."""
     log = "\n".join([
         "ptxas info    : 0 bytes gmem",
         "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__844ed71a_16_attention"
@@ -157,8 +158,27 @@ def test_ptxas_report_reads_each_kernel():
         "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__4700c0e1_12_subm_conv_cu"
         "_a78a8cb516subm_conv_kernelIfLi4ELi3EEEvPKT_PKiS3_Pfiiii' for 'sm_90a'",
         "ptxas info    : Used 48 registers, used 1 barriers, 16768 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__3b1f2c07_12_attention_cu"
+        "_5e0d9a1120flash_fwd_mma_kernelEPK13__nv_bfloat16S2_S2_PKiPS0_Pfiif' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN45_GLOBAL__N__3b1f2c07_12_attention_cu"
+        "_5e0d9a1120flash_fwd_mma_kernelEPK13__nv_bfloat16S2_S2_PKiPS0_Pfiif",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers, 20992 bytes smem, 400 bytes "
+        "cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__4700c0e1_12_subm_conv_cu"
+        "_a78a8cb520subm_conv_mma_kernelILi160ELi0EEEvPK13__nv_bfloat16PKiS3_Pfiiiiii' for "
+        "'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 428 bytes cmem[0]",
     ])
     assert ptxas_report(log) == [
         ("dq_mma_kernel", dict(spill_stores=8, spill_loads=4, registers=125, smem=20992)),
         ("subm_conv_kernel", dict(registers=48, smem=16768)),
+        ("flash_fwd_mma_kernel", dict(spill_stores=0, spill_loads=0, registers=96,
+                                      smem=20992)),
+        # A template over integers keeps its arguments (the conv's column
+        # width and probe mode); its shared memory is dynamic only, so ptxas
+        # reports none.
+        ("subm_conv_mma_kernel<160, 0>",
+         dict(spill_stores=0, spill_loads=0, registers=168)),
     ]

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 K1 (conv forward), K1' (conv input gradient), K2 (conv weight gradient), K3
 (attention forward, with its logsumexp), K3-dkv / K3-dq (attention
-backward) and the four modes of the conv-bottleneck probe, plus the two
-autograd Functions against their CPU runs.
+backward) and the four modes of the conv-bottleneck probe, each bf16 kernel
+bit-equal on a second launch, plus the two autograd Functions against their
+CPU runs.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) and nvcc; elsewhere it
 skips. Run on the card from the repository root (the JAX conftest is not
@@ -28,6 +29,8 @@ from unidet3d_tpu_torch.ops.probe_conv import probe_conv_cuda, probe_conv_plain
 from unidet3d_tpu_torch.ops.sparse_conv import subm_conv, subm_conv_dgrad, subm_conv_wgrad
 from unidet3d_tpu_torch.ops.subm_conv_cuda import (
     SubmConvFunction,
+    conv_tile,
+    kernel_smem_bytes,
     subm_conv_cuda,
     subm_conv_dgrad_cuda,
     subm_conv_wgrad_cuda,
@@ -83,6 +86,86 @@ def test_subm_conv_kernel_matches_plain(dev, cin, cout, dtype):
     # order: differences are a few fp32 ulps of the row sums.
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     assert torch.all(out[n_valid:] == 0)
+
+
+def _sparse_table(rng, v, n_valid):
+    """_nbr_table with holes: rows 640-1023 (six 64-row tiles) have no
+    neighbor at all, and rows 1024-1599 none at offsets 0-8, so whole tiles
+    skip every offset or some."""
+    nbr = _nbr_table(rng, v, n_valid)
+    nbr[640:1024] = v
+    nbr[1024:1600, :9] = v
+    return nbr
+
+
+# The distinct (Cin, Cout) of the model's 37 convs (chip_smoke.py::
+# conv_shapes at the default planes 32..160), the input conv's 6 -> 32 first.
+MODEL_CONVS = [(6, 32), (32, 32), (64, 32), (64, 64), (128, 64), (96, 96), (192, 96),
+               (128, 128), (256, 128), (160, 160)]
+
+
+@pytest.mark.parametrize("cin,cout", MODEL_CONVS)
+def test_subm_conv_bf16_kernels_match_plain_at_the_model_shapes(dev, cin, cout):
+    """K1 and K1' (the bf16 tensor-core route) at every conv shape of the
+    model, on a table whose tiles skip some or all offsets, with n_valid not
+    a multiple of the 64-row tile; each against its plain version and
+    bit-equal on a second launch."""
+    rng = np.random.RandomState(cin * 3 + cout)
+    v, n_valid = 3000, 2711
+    nbr = torch.from_numpy(_sparse_table(rng, v, n_valid)).to(dev)
+    feat, g = (torch.from_numpy(rng.randn(v, c).astype(np.float32)).to(dev, torch.bfloat16)
+               for c in (cin, cout))
+    w = torch.from_numpy(
+        (rng.randn(27, cin, cout) / np.sqrt(27 * cin)).astype(np.float32)
+    ).to(dev, torch.bfloat16)
+    cases = [("K1", subm_conv_cuda, subm_conv, feat)]
+    if cin != 6:  # the input conv's input is data: no input gradient
+        cases.append(("K1'", subm_conv_dgrad_cuda, subm_conv_dgrad, g))
+    for name, kernel, plain, x in cases:
+        before = kernel.launches
+        out = kernel(x, nbr, w, n_valid)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, name
+        # The same bf16 products (exact in fp32), fp32 sums in another
+        # order: chip_smoke.py's 1e-3.
+        torch.testing.assert_close(out, plain(x, nbr, w, n_valid), rtol=1e-3, atol=1e-3,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+        assert torch.all(out[n_valid:] == 0) and torch.all(out[640:1024] == 0), name
+        # No split-K, no atomics: the same bits every launch.
+        assert torch.equal(out, kernel(x, nbr, w, n_valid)), name
+
+
+def test_conv_tile_memory_is_the_kernels(dev):
+    """conv_tile's shared memory per block (the host's count, checked on the
+    CPU for every conv of the model) is what the compiled kernel takes."""
+    for cols in (32, 64, 96, 128, 160):
+        assert kernel_smem_bytes(cols) == conv_tile(cols).smem
+    assert kernel_smem_bytes(48) == -1
+
+
+@pytest.mark.parametrize(
+    "length,ids",
+    [(16, "runs"), (16, "random"), (200, "runs"), (200, "random"), (200, "blocks"),
+     (3072, "runs"), (3072, "random"), (3072, "blocks")],
+)
+def test_flash_attention_bf16_kernel_matches_plain_and_repeats(dev, length, ids):
+    """K3's tensor-core route with and without the logsumexp: o within
+    attention_tol of the plain version (which rounds p to bf16 where the TPU
+    kernel does), lse within 1e-4, the same o either way, and the same bits
+    on a second launch."""
+    q, k, v, _, seg = _attention_inputs(dev, length, torch.bfloat16, length + 5, ids)
+    scale = 32 ** -0.5
+    before = flash_attention_cuda.launches
+    o, lse = flash_attention_cuda(q, k, v, seg, scale, return_lse=True)
+    o_eval = flash_attention_cuda(q, k, v, seg, scale)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 2
+    ref, ref_lse = attention_plain(q, k, v, seg, scale, return_lse=True)
+    torch.testing.assert_close(o.float(), ref.float(), **attention_tol(ref))
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+    assert torch.equal(o, o_eval)
+    again, lse_again = flash_attention_cuda(q, k, v, seg, scale, return_lse=True)
+    assert torch.equal(o, again) and torch.equal(lse, lse_again)
 
 
 @pytest.mark.parametrize(
@@ -273,7 +356,8 @@ def test_flash_attention_function_on_the_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("mode", PROBE_MODES)
-@pytest.mark.parametrize("cin,cout,dtype", [(32, 32, torch.bfloat16), (96, 96, torch.float32)])
+@pytest.mark.parametrize("cin,cout,dtype", [(32, 32, torch.bfloat16), (96, 96, torch.float32),
+                                            (160, 160, torch.bfloat16)])
 def test_probe_modes_match_plain(dev, mode, cin, cout, dtype):
     rng = np.random.RandomState(cin + len(mode))
     v, n_valid = 3000, 2711  # ragged: neither is a multiple of the 64-row tile
@@ -297,6 +381,8 @@ def test_probe_modes_match_plain(dev, mode, cin, cout, dtype):
         assert torch.all(out[640:1024] == 0)
     if mode == "full":  # K1's body: K1's bits
         assert torch.equal(out, subm_conv_cuda(feat, nbr, w, n_valid))
+    # Deterministic in every mode: a second launch gives the same bits.
+    assert torch.equal(out, probe_conv_cuda(mode, feat, nbr, w, n_valid))
 
 
 def test_wrappers_reject_bad_inputs(dev):

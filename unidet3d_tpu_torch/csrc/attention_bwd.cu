@@ -55,6 +55,8 @@
 //   dq:  the mirror image: a warp owns 16 queries and keeps Q, dO as A
 //        fragments, the block walks the keys in tiles of 64 (K, V, segment
 //        ids), each warp forms S, dP, bf16(dS) and dQ += bf16(dS) K.
+//   The tiles, the ring and the tile skip are flash_tiles.cuh's, shared with
+//   the forward (attention.cu); the dq kernel walks the same key ring as it.
 //   Shared rows are 40 bf16 (80 bytes) apart, so the eight 16-byte rows of
 //   an ldmatrix phase fall in distinct banks. The segment mask is taken per
 //   element (seg_q == seg_k and inside L; the ragged last tile is
@@ -71,13 +73,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstddef>
 #include <cstdint>
 
+#include "flash_tiles.cuh"
+
 namespace {
 
-constexpr int kDim = 32;  // head dim
+using flash_tiles::kDim;  // head dim
 
 // ------------------------------------------------------------- fp32 route
 
@@ -226,133 +229,21 @@ __global__ void __launch_bounds__(kRowsBlk)
 
 // -------------------------------------------------- bf16 route: tensor cores
 
-using bf16 = __nv_bfloat16;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockRows = kWarps * 16;  // keys (dkv) or queries (dq) owned
-constexpr int kTileRows = 64;            // rows of the other side per stage
-constexpr int kSub = 16;                // of which a warp takes 16 at a time
-constexpr int kNt = kSub / 8;           // n-tiles of 8 in those
-constexpr int kKc = kSub / 16;          // k-steps of 16 in those
-constexpr int kStride = 40;              // shared row stride, bf16 (80 bytes)
-constexpr int kStages = 2;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (4) bytes global -> shared, asynchronously; zero-filled when !full.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// Waits until at most one group (the newest) is still in flight.
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8, and register i receives matrix i (transposed with .trans).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) . b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The A fragments (two k-steps of 16 over the head dim) of 16 rows from r0:
-// a[kc] = {(g, 2c), (g + 8, 2c), (g, 2c + 8), (g + 8, 2c + 8)} + 16 kc, with
-// g = lane / 4, c = lane % 4; rows past L are zero.
-__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const bf16* rows,
-                                       int r0, int L, int lane) {
-  const int g = lane >> 2, c = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + g + 8 * half;
-    const uint32_t* p = reinterpret_cast<const uint32_t*>(rows + (size_t)r * kDim);
-#pragma unroll
-    for (int kc = 0; kc < 2; ++kc) {
-      a[kc][half] = r < L ? p[kc * 8 + c] : 0u;
-      a[kc][2 + half] = r < L ? p[kc * 8 + 4 + c] : 0u;
-    }
-  }
-}
-
-// [min, max] of the segment ids of a warp's 16 rows from r0 (inside L);
-// an empty range (INT_MAX, INT_MIN) when it has none.
-__device__ __forceinline__ int2 warp_seg_range(const int* seg_b, int r0,
-                                               int L, int lane) {
-  const int r = r0 + lane;
-  const bool ok = lane < 16 && r < L;
-  const int s = ok ? seg_b[r] : 0;
-  return make_int2(__reduce_min_sync(0xffffffffu, ok ? s : INT_MAX),
-                   __reduce_max_sync(0xffffffffu, ok ? s : INT_MIN));
-}
-
-// Whether any of the tile's n ids (shared) falls in the warp's range.
-__device__ __forceinline__ bool tile_meets(const int* ids, int n, int2 range,
-                                           int lane) {
-  bool hit = false;
-#pragma unroll
-  for (int j = lane; j < kTileRows; j += 32)
-    hit |= j < n && ids[j] >= range.x && ids[j] <= range.y;
-  return __any_sync(0xffffffffu, hit);
-}
-
-// Stages rows [r0, r0 + 64) of two (L, 32) bf16 arrays into padded shared
-// tiles, zero past L.
-__device__ __forceinline__ void stage_rows(bf16 (*sa)[kStride],
-                                           bf16 (*sb)[kStride],
-                                           const bf16* a, const bf16* b,
-                                           int r0, int L) {
-  for (int e = threadIdx.x; e < kTileRows * 4; e += kThreads) {
-    const int r = e >> 2, chunk = (e & 3) * 8;
-    const bool ok = r0 + r < L;
-    const size_t off = ok ? (size_t)(r0 + r) * kDim + chunk : 0;
-    cp_async16(&sa[r][chunk], a + off, ok);
-    cp_async16(&sb[r][chunk], b + off, ok);
-  }
-}
+using namespace mma_sm90;
+using flash_tiles::KvSmem;
+using flash_tiles::kBlockRows;
+using flash_tiles::kStages;
+using flash_tiles::kStride;
+using flash_tiles::kThreads;
+using flash_tiles::kTileRows;
+using flash_tiles::load_a;
+using flash_tiles::stage_kv;
+using flash_tiles::stage_rows;
+using flash_tiles::tile_meets;
+using flash_tiles::warp_seg_range;
+constexpr int kSub = 16;       // rows of a tile a warp takes at a time
+constexpr int kNt = kSub / 8;  // n-tiles of 8 in those
+constexpr int kKc = kSub / 16;  // k-steps of 16 in those
 
 struct DkvSmem {
   bf16 q[kStages][kTileRows][kStride];
@@ -415,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     const int s = t & 1, q0 = t * kTileRows;
     if (t + 1 < n_tiles) stage(t + 1, s ^ 1);
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
 
     const int n = min(kTileRows, L - q0);
@@ -457,10 +348,8 @@ __global__ void __launch_bounds__(kThreads, 4)
             st[nt][i] = p;
             dpt[nt][i] = p * fmaf(dpt[nt][i], scale, -dis[e]);
           }
-          pa[nt >> 1][(nt & 1) * 2] = pack_bf16(st[nt][0], st[nt][1]);
-          pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(st[nt][2], st[nt][3]);
-          dsa[nt >> 1][(nt & 1) * 2] = pack_bf16(dpt[nt][0], dpt[nt][1]);
-          dsa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(dpt[nt][2], dpt[nt][3]);
+          acc_to_a(pa[nt >> 1], nt, st[nt]);
+          acc_to_a(dsa[nt >> 1], nt, dpt[nt]);
         }
         // dV += bf16(P^T) dO, dK += bf16(dS^T) Q: k-steps of 16 queries,
         // dO and Q as B (queries x dims) by ldmatrix.trans.
@@ -499,19 +388,13 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-struct DqSmem {
-  bf16 k[kStages][kTileRows][kStride];
-  bf16 v[kStages][kTileRows][kStride];
-  int seg[kStages][kTileRows];
-};
-
 __global__ void __launch_bounds__(kThreads, 4)
     dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const int* __restrict__ seg,
                   const bf16* __restrict__ dout, const float* __restrict__ lse,
                   const float* __restrict__ di, bf16* __restrict__ dq, int H,
                   int L, float scale) {
-  __shared__ __align__(16) DqSmem sm;
+  __shared__ __align__(16) KvSmem sm;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, c = lane & 3;
   const int bh = blockIdx.y;
@@ -537,12 +420,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   const float c2 = scale * kLog2e;
 
   auto stage = [&](int t, int s) {
-    const int k0 = t * kTileRows;
-    stage_rows(sm.k[s], sm.v[s], k + base, v + base, k0, L);
-    for (int e = threadIdx.x; e < kTileRows; e += kThreads) {
-      const int kk = k0 + e;
-      cp_async4(&sm.seg[s][e], seg_b + (kk < L ? kk : 0), kk < L);
-    }
+    stage_kv(sm, t, s, k + base, v + base, seg_b, L);
   };
 
   const int n_tiles = (L + kTileRows - 1) / kTileRows;
@@ -552,7 +430,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     const int s = t & 1, k0 = t * kTileRows;
     if (t + 1 < n_tiles) stage(t + 1, s ^ 1);
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
 
     const int n = min(kTileRows, L - k0);
@@ -587,8 +465,7 @@ __global__ void __launch_bounds__(kThreads, 4)
             const float p = ok ? ex2(fmaf(st[nt][i], c2, -lse2[r])) : 0.f;
             dp[nt][i] = p * fmaf(dp[nt][i], scale, -dis[r]);
           }
-          dsa[nt >> 1][(nt & 1) * 2] = pack_bf16(dp[nt][0], dp[nt][1]);
-          dsa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(dp[nt][2], dp[nt][3]);
+          acc_to_a(dsa[nt >> 1], nt, dp[nt]);
         }
         // dQ += bf16(dS) K: k-steps of 16 keys, K as B (keys x dims).
 #pragma unroll

@@ -7,8 +7,9 @@ The port of the TPU flash attention that the JAX decoder calls
 attends to key j only where ``seg[i] == seg[j]``. The decoder gives valid
 queries segment 1 and padded ones segment 2.
 
-  * ``flash_attention_cuda``: K3, the forward (``csrc/attention.cu``); it
-    also returns the per-row logsumexp when asked, for the backward.
+  * ``flash_attention_cuda``: K3, the forward (``csrc/attention.cu``; in
+    bf16 on the tensor cores, in fp32 an FMA kernel); it also returns the
+    per-row logsumexp when asked, for the backward.
   * ``flash_attention_dkv_cuda`` / ``flash_attention_dq_cuda``: K3's backward
     (``csrc/attention_bwd.cu``), the ports of ``_flash_attention_bwd_dkv``
     and ``_flash_attention_bwd_dq`` of the TPU flash attention.
@@ -39,17 +40,26 @@ def _masked_logits(q, k, seg, sm_scale):
 
 
 def attention_plain(q, k, v, seg, sm_scale: float, return_lse: bool = False):
-    """softmax(q k^T * sm_scale, masked where seg_q != seg_k) v in fp32.
+    """softmax(q k^T * sm_scale, masked where seg_q != seg_k) v, fp32 sums:
+    o = (round(p) v) / l with p = exp(s - m_row), l = rowsum(p).
+
+    It rounds where the TPU forward does (``flash_attention.py:470-471``,
+    ``p.astype(v.dtype)`` before the p v product, while the row sum l takes
+    the unrounded fp32 p, :453): p to the input dtype before the product,
+    the identity in fp32. A query always meets its own key, so m_row is
+    finite.
 
     q, k, v: (B, H, L, D); seg: (B, L) int. Returns (B, H, L, D) in q's
     dtype, and with `return_lse` also the (B, H, L) fp32 row logsumexp of
     the masked scaled scores."""
     logits = _masked_logits(q, k, seg, sm_scale)
-    weights = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", weights, v.float()).to(q.dtype)
+    m_row = logits.amax(-1, keepdim=True).detach()
+    p = torch.exp(logits - m_row)
+    l_row = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float()) / l_row
     if return_lse:
-        return out, torch.logsumexp(logits, dim=-1)
-    return out
+        return out.to(q.dtype), torch.logsumexp(logits, dim=-1)
+    return out.to(q.dtype)
 
 
 def attention_bwd_plain(q, k, v, seg, do, lse, di, sm_scale: float):
@@ -85,7 +95,13 @@ def attention_tol(ref) -> dict:
     kernel's ex2.approx) one term moves by one bf16 ulp of itself. On an
     H100 at the decoder's training shape, 1 to 11 of the 6.3M values of
     each of dq, dk, dv exceed 1e-4 of the largest value and none 2^-8 of
-    it; a dropped mask or scale misses by ~100 %."""
+    it; a dropped mask or scale misses by ~100 %. The forward rounds p to
+    bf16 too, relative to a running max (the kernel's per 64-key tile, the
+    TPU's per 128-key block) where the plain version takes the row max, so
+    the two round some p apart and o moves by ~2^-10 of its scale: on an
+    NVIDIA H100 80GB HBM3 (700 W) at the decoder's shapes the largest
+    difference, 3.9e-3 (2^-8, a bf16 ulp of a value in [0.5, 1)), is inside
+    the same bound, which needs no restating."""
     if ref.dtype == torch.float32:
         return dict(rtol=1e-4, atol=1e-4)
     return dict(rtol=2.0 ** -7, atol=2.0 ** -8 * ref.float().abs().max().item())

@@ -1,9 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each kernel is one source ``csrc/<name>.cu`` with a plain C interface,
-compiled for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` at the
-repository root the first time it is needed. The hash covers the source and
-the flags, so an edited source is rebuilt and a stale library never loads.
+Each kernel is one source ``csrc/<name>.cu`` with a plain C interface (it
+may include the shared headers ``csrc/*.cuh``), compiled for Hopper
+(``sm_90a``) into ``build/lib<name>-<hash>.so`` at the repository root the
+first time it is needed. The hash covers the source, the headers and the
+flags, so an edited source or header is rebuilt and a stale library never
+loads.
 Nothing here runs at import time: the CPU tests import every module on a
 host without nvcc.
 """
@@ -43,7 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library of `name`; its hash covers the source, every shared
+    header in csrc/ (``*.cuh``) and the flags."""
+    src = b"".join(path.read_bytes() for path in (
+        CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
@@ -79,7 +84,9 @@ def build(names=KERNELS) -> dict:
 
 def _kernel_name(mangled: str) -> str:
     """The last name of an Itanium-mangled function in namespaces
-    (``_ZN<len><ns>...<len><name>...``), or `mangled` itself."""
+    (``_ZN<len><ns>...<len><name>...``), or `mangled` itself, followed by
+    its template arguments when all are integers (``ILi160ELi0EE`` ->
+    ``<160, 0>``)."""
     if not mangled.startswith("_ZN"):
         return mangled
     at, name = 3, mangled
@@ -87,13 +94,17 @@ def _kernel_name(mangled: str) -> str:
         start = at + length.end()
         name = mangled[start:start + int(length[0])]
         at = start + int(length[0])
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[at:])
+    if args:
+        name += "<" + ", ".join(re.findall(r"Li(-?\d+)E", args[1])) + ">"
     return name
 
 
 def ptxas_report(log: str) -> list:
     """Each kernel's resources from a ptxas -v report, in its order:
     [(name, {"registers", "spill_stores", "spill_loads", "smem"})], the name
-    demangled to its last part (a template's instances share it)."""
+    demangled to its last part and, for a template over integers only, its
+    arguments (other templates' instances share the bare name)."""
     kernels = []
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)

@@ -2,16 +2,18 @@
 
 The port of the JAX package's ``scripts/probe_conv_bottleneck.py::
 run_variant``, as a bisection of K1 on Hopper. K1's kernel
-(``csrc/subm_conv.cu``) is templated on one of four modes:
+(``csrc/subm_conv.cu``, both its bf16 tensor-core route and its fp32 FMA
+route) is templated on one of four modes:
 
   * ``full``: K1 itself, ``out[i] = sum_o feat[nbr[i, o]] @ W[o]``;
   * ``gather_only``: the table read, the per-offset skip and the row
-    gathers, no weights and no FMAs: ``out[i, c] = sum_o feat[nbr[i, o], c]``
-    (Cin == Cout);
-  * ``no_gather``: the table read, the skip, the weight staging and the FMAs
-    on the tile's own rows: ``out[i] = sum_o [nbr[i, o] valid] feat[i] @ W[o]``;
-  * ``no_table``: the weight staging and the FMAs for all 27 offsets on the
-    tile's own rows: ``out[i] = sum_o feat[i] @ W[o]``.
+    gathers, no weights and no products:
+    ``out[i, c] = sum_o feat[nbr[i, o], c]`` (Cin == Cout);
+  * ``no_gather``: the table read, the skip, the weight staging and the
+    products on the tile's own rows:
+    ``out[i] = sum_o [nbr[i, o] valid] feat[i] @ W[o]``;
+  * ``no_table``: the weight staging and the products for all 27 offsets on
+    the tile's own rows: ``out[i] = sum_o feat[i] @ W[o]``.
 
 ``probe_conv_plain`` is each mode's plain version, ``probe_conv_cuda`` the
 wrapper (the plain version for CPU tensors; for CUDA tensors the kernel or an
@@ -25,13 +27,13 @@ from typing import NamedTuple
 import torch
 
 from .sparse_conv import _pad_rows, _with_zero_row, subm_conv
-from .subm_conv_cuda import _launch_k1
+from .subm_conv_cuda import _launch_k1, conv_tile
 
 MODES = ("full", "gather_only", "no_gather", "no_table")
 # H100 SXM published peaks (NVIDIA data sheet, dense): the HBM rate, the
 # operation rate by the inputs' itemsize (2: bf16 on the tensor cores; 4:
-# fp32 outside them), and the fp32 rate of the units the probe's kernel does
-# its own FMAs on.
+# fp32 outside them), and the fp32 rate of the units the fp32 route does its
+# FMAs on.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {2: 989e12, 4: 67e12}
 FP32_UNIT_FLOPS = 67e12
@@ -137,8 +139,9 @@ class ProbeWork(NamedTuple):
         return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
     def fp32_unit_ms(self) -> float:
-        """The kernel's own FMAs and adds at the fp32 rate of the units it
-        does them on: a diagnostic of the bisection, not a bound."""
+        """The kernel's own FMAs and adds at the fp32 rate of the units the
+        fp32 route does them on (the bf16 route does its products on the
+        tensor cores): a diagnostic of the bisection, not a bound."""
         return (2 * self.fmas + self.adds) / FP32_UNIT_FLOPS * 1e3
 
 
@@ -150,7 +153,8 @@ def probe_work(
     4: fp32).
 
     Counted from the kernel: it launches 64-row tiles over [0, n_valid) and
-    column blocks of 32 output channels (64 when Cout > 32). Every mode but
+    column blocks of ``conv_tile(cout).cols`` output channels in bf16 (the
+    fp32 route: 32, or 64 when Cout > 32). Every mode but
     no_table reads the tile's 27 table entries per row and skips an offset
     that no row of the tile has; no_table stages all 27. A staged offset
     loads the valid rows (the neighbors; for no_gather and no_table the rows
@@ -164,7 +168,8 @@ def probe_work(
     nbr = torch.as_tensor(neighbors)
     v, n = nbr.shape[0], int(n_valid)
     tiles = -(-n // _ROWS)
-    col_blocks = -(-cout // (32 if cout <= 32 else 64))
+    cols = conv_tile(cout).cols if itemsize == 2 else 32 if cout <= 32 else 64
+    col_blocks = -(-cout // cols)
     valid = (nbr[:n] >= 0) & (nbr[:n] < v)  # (n, 27)
     if mode == "no_table":
         tile_offsets, pairs, rows = tiles * _OFFSETS, n * _OFFSETS, n

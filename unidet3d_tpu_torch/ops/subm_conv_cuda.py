@@ -2,7 +2,9 @@
 differentiable conv built from them.
 
   * ``subm_conv_cuda``: K1, the forward (``csrc/subm_conv.cu``), the port of
-    the JAX package's ``ops/pallas_conv.py::subm_conv_pallas``.
+    the JAX package's ``ops/pallas_conv.py::subm_conv_pallas``. In bf16 it is
+    a gather-GEMM on the tensor cores whose block shape ``conv_tile`` chooses;
+    in fp32 an FMA kernel.
   * ``subm_conv_dgrad_cuda``: K1', the input gradient: K1 launched on the
     cotangent with the mirrored weights ``W'[o] = W[26 - o]^T`` over the same
     neighbor table (``pallas_conv.py::_banded_conv_bwd``). It relies on the
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,8 +31,37 @@ from . import cuda_build
 from .sparse_conv import subm_conv, subm_conv_dgrad, subm_conv_wgrad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# K1's bf16 route (csrc/subm_conv.cu): rows per block, warps (16 rows each),
+# input channels per pipeline step, cp.async ring stages, widest column block.
+_ROWS, _WARPS, _BK, _STAGES, _MAX_COLS = 64, 4, 32, 4, 160
 # Blocks K2 aims to have in flight: 16 per SM of the H100's 132.
 _WGRAD_TARGET_BLOCKS = 16 * 132
+
+
+class ConvTile(NamedTuple):
+    """The block shape of K1's bf16 route for one conv."""
+
+    rows: int  # output rows per block
+    cols: int  # output columns per block (BN)
+    warps: int  # warps per block, 16 rows each
+    stages: int  # slots of the cp.async ring (stages - 1 steps in flight)
+    smem: int  # dynamic shared memory per block, bytes
+
+
+def conv_tile(cout: int) -> ConvTile:
+    """K1's bf16 block shape for `cout` output columns (the input gradient's
+    Cout is the forward's Cin): 64 rows by BN columns, BN a multiple of 32
+    of at most 160, Cout split into ceil(Cout / 160) column blocks of equal
+    width; each warp keeps 16 x BN fp32 accumulators. The shared memory is
+    the kernel's ``ConvSmem<BN>``: the ring of gathered rows (64 x 40 bf16)
+    and W[o] slices (32 x (BN + 8) bf16), the tile's table (27 x 65 int32),
+    the offset list and the warps' offset masks."""
+    blocks = -(-int(cout) // _MAX_COLS)
+    per_block = -(-int(cout) // blocks)
+    cols = 32 * -(-per_block // 32)
+    smem = (_STAGES * _ROWS * (_BK + 8) * 2 + _STAGES * _BK * (cols + 8) * 2
+            + 27 * (_ROWS + 1) * 4 + 27 * 4 + _WARPS * 4)
+    return ConvTile(rows=_ROWS, cols=cols, warps=_WARPS, stages=_STAGES, smem=smem)
 
 
 @functools.cache
@@ -38,10 +70,19 @@ def _kernel():
     fn.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_smem_bytes(cols: int) -> int:
+    """The bf16 route's shared memory per block for `cols` columns, as the
+    compiled kernel counts it (-1 for a width it does not take): the card's
+    check of ``conv_tile``."""
+    fn = cuda_build.load("subm_conv").subm_conv_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(int(cols))
 
 
 @functools.cache
@@ -101,8 +142,8 @@ def _launch_k1(features, neighbors, weights, n_valid, name, mode=0) -> torch.Ten
     with torch.cuda.device(features.device):
         err = _kernel()(
             mode, features.data_ptr(), neighbors.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), v, n_valid, cin, cout, _DTYPES[features.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), v, n_valid, cin, cout, conv_tile(cout).cols,
+            _DTYPES[features.dtype], torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -8,12 +8,14 @@ production level-0 shape: one synthetic 131,072-point scene (seed 5), its
 level-0 neighbor table, features (V, 32) and weights (27, 32, 32) in bf16
 from ``np.random.RandomState(0)``. For each mode it checks the output against
 the plain version (rtol = atol = 1e-3), checks that ``full`` gives K1's bits,
-and on the card times the mode with CUDA events over back-to-back launches
-(the L2 cache stays warm between them) and prints the time beside the mode's
-bound and work, its plain version's time and that of one PyTorch call that
-computes the same function, then the gaps that bisect K1:
+and on the card times the modes in turn, in rounds of back-to-back launches
+(the L2 cache stays warm between them; CUDA events), so that a change of the
+card's clocks during the run reaches every mode alike; a mode's time is the
+median of its rounds. It prints each time beside the mode's bound and work,
+its plain version's time and that of one PyTorch call that computes the
+same function, then the gaps that bisect K1:
 
-  * full - gather_only: the weight staging and the FMAs;
+  * full - gather_only: the weight staging and the products;
   * full - no_gather: gathering the neighbors' rows instead of the tile's own;
   * no_gather - no_table: the table read and the per-offset skip, net of the
     offsets that no_table stages and the skip spares.
@@ -24,6 +26,7 @@ plain versions at the cap the caller sets and times nothing.
 from __future__ import annotations
 
 import argparse
+import statistics
 from typing import NamedTuple
 
 import numpy as np
@@ -44,7 +47,11 @@ TOL = dict(rtol=1e-3, atol=1e-3)  # the same fp32 sums of bf16 products in anoth
 # The library calls round their output (and einsum its sum_o W[o]) to bf16:
 # their largest error, relative to the largest output, stays below this.
 LIBRARY_RTOL = 2e-2
-REPS = 20  # timed back-to-back launches per mode
+# A round times REPS back-to-back launches of one mode after as many untimed
+# ones; ROUNDS rounds take the modes in turn. A mode takes 0.04-0.3 ms: one
+# window per mode, right after the build, read up to 3x apart between runs.
+REPS = 200
+ROUNDS = 5
 
 
 class ProbeInputs(NamedTuple):
@@ -138,11 +145,18 @@ def measure(inputs: ProbeInputs, outs: dict, card: str | None) -> dict:
             lib_err = (call().float() - ref[:n]).abs().max().item()
             if lib_err > LIBRARY_RTOL * ref.abs().max().item():
                 raise AssertionError(f"{label} does not compute probe {mode}: err {lib_err}")
-            r["ms"] = cuda_ms(lambda: probe_conv_cuda(mode, *inputs), reps=REPS)
             r["plain_ms"] = cuda_ms(lambda: probe_conv_plain(mode, *inputs), reps=3)
             r["library_ms"] = cuda_ms(call, reps=3)
             r["library"] = f"{label}, err {lib_err:.1e}"
         res[mode] = r
+    rounds = {mode: [] for mode in library}
+    for _ in range(ROUNDS if library else 0):
+        for mode, times in rounds.items():
+            times.append(cuda_ms(lambda: probe_conv_cuda(mode, *inputs), reps=REPS,
+                                 warmup=REPS))
+    for mode, times in rounds.items():
+        res[mode]["ms"] = statistics.median(times)
+        res[mode]["rounds"] = times
     _report(inputs, res, card)
     return res
 
@@ -152,11 +166,13 @@ def _report(inputs: ProbeInputs, res: dict, card: str | None) -> None:
     where = card or "CPU, plain versions, no times"
     print(f"[P1] scene {feat.shape[0]} pts (seed {SEED}), level 0: V {feat.shape[0]}, n_valid {n}, "
           f"{feat.shape[1]}->{w.shape[2]} {str(feat.dtype).replace('torch.', '')}; "
-          f"times per probe call, L2 warm (back-to-back launches) | {where}")
+          f"times per probe call, L2 warm (rounds of {REPS} back-to-back launches, the modes "
+          f"in turn) | {where}")
     for mode, r in res.items():
         wk = r["work"]
         times = "times not measured" if r["ms"] is None else (
-            f"{r['ms']:.4f} ms per conv, plain {r['plain_ms']:.4f} ms, "
+            f"{r['ms']:.4f} ms per conv (median of {len(r['rounds'])} rounds, "
+            f"{min(r['rounds']):.4f}-{max(r['rounds']):.4f}), plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms ({r['library']})")
         print(f"[P1] {mode:11s}: err {r['max_abs_err']:.1e}; {times}; bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {wk.ops} operations needed); "
@@ -169,7 +185,7 @@ def _report(inputs: ProbeInputs, res: dict, card: str | None) -> None:
         return
     ms = {mode: r["ms"] for mode, r in res.items()}
     print(f"[P1] gaps: full - gather_only {ms['full'] - ms['gather_only']:.4f} ms "
-          f"(weight staging + FMAs), full - no_gather {ms['full'] - ms['no_gather']:.4f} ms "
+          f"(weight staging + products), full - no_gather {ms['full'] - ms['no_gather']:.4f} ms "
           f"(the neighbor gather), no_gather - no_table "
           f"{ms['no_gather'] - ms['no_table']:.4f} ms (table read + skip) | {card}")
 
