@@ -7,8 +7,8 @@ Phases (any failure raises and the script exits non-zero):
   1. build the Hopper kernels (subm conv forward K1, templated on the modes
      of the conv-bottleneck probe P1, and weight gradient K2, flash attention
      forward K3 and backward K3-dkv / K3-dq) with nvcc, one process per
-     source, all at once; the bf16 routes of K1 (and K1'), K3, K3-dkv and
-     K3-dq run on the tensor cores (mma.sync), the fp32 routes on FMAs;
+     source, all at once; the bf16 routes of K1 (and K1'), K2, K3, K3-dkv
+     and K3-dq run on the tensor cores (mma.sync), the fp32 routes on FMAs;
   2. P1, the conv-bottleneck probe, through its tool
      (`unidet3d_tpu_torch/tools/probe_conv_bottleneck.py`): one call of each
      of its four modes (full, gather_only, no_gather, no_table) with the
@@ -37,7 +37,10 @@ Phases (any failure raises and the script exits non-zero):
      (the conv weight gradient) against their plain versions at every
      distinct (level, Cin, Cout) of the training step, on the neighbor
      tables of the 8-scene training batch, bf16, each bit-equal on a second
-     launch (phase 3's code);
+     launch (phase 3's code), with K2's block shape (wgrad_tile) per shape,
+     each shape where a kernel is slower than its index_select + mm
+     yardstick marked, and K2's registers, spills and shared memory per
+     instance;
   8. K3 with its logsumexp, and K3-dkv / K3-dq against the plain backward, at
      B=8, H=8, L=3072, head dim 32, in bf16 and in fp32 (phase 4's code);
      the bf16 kernels' and SDPA's backward against the fp32 plain backward
@@ -56,8 +59,8 @@ Phases (any failure raises and the script exits non-zero):
      torch.profiler;
  11. the `kernels` JSON line (per training step; the probe's modes per probe
      call), the card's name and power limit, and the final JSON line.
-Times are CUDA-event means or synchronised host-clock medians on the card in
-this run.
+Times are CUDA-event means (the conv kernels per shape: the median of 5 such
+means) or synchronised host-clock medians on the card in this run.
 """
 from __future__ import annotations
 
@@ -95,6 +98,8 @@ from unidet3d_tpu_torch.ops.subm_conv_cuda import (
     subm_conv_cuda,
     subm_conv_dgrad_cuda,
     subm_conv_wgrad_cuda,
+    wgrad_smem,
+    wgrad_tile,
 )
 from unidet3d_tpu_torch.parallel.train_step import make_train_step
 from unidet3d_tpu_torch.tools.probe_conv_bottleneck import measure, probe_inputs, run_modes
@@ -175,7 +180,7 @@ def conv_shapes(planes):
 def ptxas_line(name, stats) -> str:
     return (f"{name} {stats.get('registers')} registers, spill stores "
             f"{stats.get('spill_stores')} B, spill loads {stats.get('spill_loads')} B, "
-            f"smem {stats.get('smem')} B")
+            f"smem {stats.get('smem', 0)} B")
 
 
 def phase_build():
@@ -211,20 +216,24 @@ def phase_conv(pack_np, planes, card, backward, ptxas=()):
     versions at each distinct (level, Cin, Cout) of the 37 submanifold
     convs, on this pack's neighbor tables, with bf16 features, weights and
     cotangents, each bit-equal on a second launch; prints the bf16 conv
-    kernel's registers, spills and shared memory per column width (`ptxas`:
-    the conv source's ptxas_report entries). Returns the totals per kernel
-    over one forward (one training step with `backward`)."""
+    kernels' registers, spills and shared memory per instance (`ptxas`: the
+    conv sources' ptxas_report entries), and marks each kernel slower than
+    its index_select + mm yardstick at a shape. Returns the totals per
+    kernel over one forward (one training step with `backward`)."""
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     names = ("subm_conv", "subm_conv_dgrad", "subm_conv_wgrad")[: 3 if backward else 1]
     tag = "conv-train" if backward else "K1"
     tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0) for k in names}
-    for name, stats in ptxas:  # the conv's own instances (mode 0), per width
-        if name.startswith("subm_conv_mma_kernel<") and name.endswith(", 0>"):
-            cols = int(name.split("<")[1].split(",")[0])
-            print(f"[{tag}] ptxas: {ptxas_line(name, stats)} (+ {conv_tile(cols).smem} B "
-                  f"dynamic smem, conv_tile)")
+    for name, stats in ptxas:  # K1 (mode 0, per width) and K2 instances
+        args = name.split("<")[-1].rstrip(">").split(", ")
+        if name.startswith("subm_conv_mma_kernel<") and args[1] == "0":
+            print(f"[{tag}] ptxas: {ptxas_line(name, stats)} (+ "
+                  f"{conv_tile(int(args[0])).smem} B dynamic smem, conv_tile)")
+        elif name.startswith("subm_conv_wgrad_mma_kernel<"):
+            print(f"[{tag}] ptxas: {ptxas_line(name, stats)} (+ "
+                  f"{wgrad_smem(*map(int, args))} B dynamic smem, wgrad_tile)")
     for (lvl, cin, cout), calls in sorted(conv_shapes(planes).items()):
         nbr = torch.from_numpy(pack_np.neighbors[lvl]).to(dev)
         v, n = nbr.shape[0], pack_np.n_valid[lvl]
@@ -284,7 +293,9 @@ def phase_conv(pack_np, planes, card, backward, ptxas=()):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             t = tot[name]
             t["max_abs_err"] = max(t["max_abs_err"], err)
-            ms = cuda_ms(kernel, reps=3)
+            # Median of 5 rounds of 3 launches, so that one slow window does
+            # not set a shape's time.
+            ms = statistics.median(cuda_ms(kernel, reps=3) for _ in range(5))
             plain_ms = cuda_ms(plain, reps=1)
             library_ms = cuda_ms(library, reps=1)
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
@@ -292,7 +303,12 @@ def phase_conv(pack_np, planes, card, backward, ptxas=()):
                              ("ops_ms", ops_ms)):
                 t[key] += n_calls * val
             row[name] = (f"{ms:.3f}/{plain_ms:.3f}/{library_ms:.3f}/"
-                         f"{max(bytes_ms, ops_ms):.4f} err {err:.1e}")
+                         f"{max(bytes_ms, ops_ms):.4f} err {err:.1e}"
+                         + (" SLOWER than index_select+mm" if ms > library_ms else ""))
+        if backward:
+            tile = wgrad_tile(cin, cout)
+            row["subm_conv_wgrad"] += (f" (tile {tile.cin_tile}x{tile.cout_tile}, "
+                                       f"{tile.group} offsets, {tile.acc} acc)")
         print(f"[{tag}] level {lvl} {cin}->{cout} x{calls}: rows {n} pairs {pairs} "
               f"kernel/plain/index_select+mm/bound ms: " + ", ".join(
                   f"{k} {r}" for k, r in row.items()) + f" | {card}")
@@ -799,7 +815,8 @@ def main() -> int:
     t0 = time.time()
     batch, gt, pack = collate(train_samples, cfg)
     pack_s = time.time() - t0
-    conv = phase_conv(pack, cfg.num_planes, card, backward=True)
+    conv = phase_conv(pack, cfg.num_planes, card, backward=True,
+                      ptxas=ptxas.get("subm_conv_wgrad", ()))
     n_q = [min(int(s["sp_pts_mask"].max()) + 1, cfg.query_thr) for s in train_samples]
     attn = phase_attention(n_q, cfg.max_superpoints, card, backward=True,
                            ptxas=ptxas.get("attention_bwd", ()))

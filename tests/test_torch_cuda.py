@@ -3,7 +3,8 @@ K1 (conv forward), K1' (conv input gradient), K2 (conv weight gradient), K3
 (attention forward, with its logsumexp), K3-dkv / K3-dq (attention
 backward) and the four modes of the conv-bottleneck probe, each bf16 kernel
 bit-equal on a second launch, plus the two autograd Functions against their
-CPU runs.
+CPU runs, and the host's shared-memory counts of K1 and K2 against the
+compiled kernels'.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) and nvcc; elsewhere it
 skips. Run on the card from the repository root (the JAX conftest is not
@@ -28,12 +29,16 @@ from unidet3d_tpu_torch.ops.probe_conv import MODES as PROBE_MODES
 from unidet3d_tpu_torch.ops.probe_conv import probe_conv_cuda, probe_conv_plain
 from unidet3d_tpu_torch.ops.sparse_conv import subm_conv, subm_conv_dgrad, subm_conv_wgrad
 from unidet3d_tpu_torch.ops.subm_conv_cuda import (
+    WGRAD_INSTANCES,
     SubmConvFunction,
+    wgrad_smem,
     conv_tile,
     kernel_smem_bytes,
     subm_conv_cuda,
     subm_conv_dgrad_cuda,
     subm_conv_wgrad_cuda,
+    wgrad_kernel_smem_bytes,
+    wgrad_tile,
 )
 
 pytestmark = pytest.mark.cuda
@@ -224,12 +229,25 @@ def test_subm_conv_dgrad_route_matches_plain(dev, cin, cout, dtype):
 
 
 @pytest.mark.parametrize(
-    "cin,cout,dtype",
-    [(6, 32, torch.bfloat16), (32, 32, torch.float32), (64, 64, torch.bfloat16),
-     (96, 96, torch.float32), (256, 128, torch.bfloat16), (160, 160, torch.bfloat16)],
+    "cin,cout,dtype,holes",
+    [(6, 32, torch.bfloat16, False), (32, 32, torch.float32, False),
+     (64, 64, torch.bfloat16, False), (96, 96, torch.float32, False),
+     (256, 128, torch.bfloat16, False), (160, 160, torch.bfloat16, False),
+     (6, 32, torch.bfloat16, True), (32, 32, torch.bfloat16, True),
+     (96, 96, torch.bfloat16, True), (192, 96, torch.bfloat16, True)],
 )
-def test_subm_conv_wgrad_kernel_matches_plain(dev, cin, cout, dtype):
+def test_subm_conv_wgrad_kernel_matches_plain(dev, cin, cout, dtype, holes):
+    """K2 against its plain version (bf16: the tensor-core route, whose block
+    shape wgrad_tile picks; fp32: the FMA route), with n_valid not a multiple
+    of the 32- or 64-row step and the rows past it set to 1e6 (never read).
+    With `holes`, the table of _sparse_table loses offsets 0-13 in every
+    row: the first offset group of every block shape (at most 14 offsets)
+    has no neighbor at all, and whole steps skip every offset."""
     nbr, n_valid, feat, g, _ = _conv_inputs(dev, cin, cout, dtype, cin + cout)
+    if holes:
+        table = _sparse_table(np.random.RandomState(cin), nbr.shape[0], n_valid)
+        table[:, :14] = nbr.shape[0]
+        nbr = torch.from_numpy(table).to(dev)
     feat[n_valid:] = 1e6  # rows past n_valid must not be read
     g[n_valid:] = 1e6
     before = subm_conv_wgrad_cuda.launches
@@ -240,8 +258,22 @@ def test_subm_conv_wgrad_kernel_matches_plain(dev, cin, cout, dtype):
     # The same bf16 (or fp32) products; fp32 sums of ~1,000 pairs each in
     # another order (row splits, then the split sum).
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-3)
+    if holes:
+        assert torch.all(out[:14] == 0)
     again = subm_conv_wgrad_cuda(feat, nbr, g, n_valid)
     assert torch.equal(out, again)  # no atomics: the same bits every run
+
+
+def test_wgrad_tile_memory_is_the_kernels(dev):
+    """wgrad_tile's shared memory per block (the host's count, checked on
+    the CPU at every training shape) is what the compiled K2 takes, for
+    every instance of its bf16 route."""
+    for mt, nt, gw in WGRAD_INSTANCES:
+        assert wgrad_kernel_smem_bytes(16 * mt, 16 * nt) == wgrad_smem(mt, nt, gw)
+    for cin, cout in MODEL_CONVS:
+        tile = wgrad_tile(cin, cout)
+        assert wgrad_kernel_smem_bytes(tile.cin_tile, tile.cout_tile) == tile.smem
+    assert wgrad_kernel_smem_bytes(48, 48) == -1
 
 
 def test_subm_conv_function_on_the_card_matches_cpu(dev):

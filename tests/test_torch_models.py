@@ -68,33 +68,49 @@ def test_backbone_matches_jax_reduced_width():
     np.testing.assert_allclose(mine, ref, rtol=1e-4, atol=1e-4)
 
 
-def test_decoder_matches_jax_reduced_width():
-    from unidet3d_tpu.models.decoder import UniDecoder as JaxDecoder
-
-    from unidet3d_tpu_torch.core.class_table import build_class_table
-    from unidet3d_tpu_torch.core.config import DATASETS_CLASSES, default_config
-    from unidet3d_tpu_torch.models.decoder import UniDecoder
-
-    cfg = default_config()
-    table = build_class_table(DATASETS_CLASSES)
+def _decoder_inputs():
     rng = np.random.RandomState(2)
     b, q, cin = 2, 40, 16
     queries = rng.randn(b, q, cin).astype(np.float32)
     mask = rng.rand(b, q) > 0.3
     centers = (rng.rand(b, q, 3) * 4).astype(np.float32)
     ds = np.array([0, 5], np.int32)  # axis-aligned and rotated decode
+    return queries, mask, centers, ds
+
+
+_DECODER_KW = dict(num_layers=2, d_model=64, num_heads=2, hidden_dim=128, activation="gelu")
+
+
+def _port_decoder(dropout=0.0):
+    from unidet3d_tpu_torch.core.class_table import build_class_table
+    from unidet3d_tpu_torch.core.config import DATASETS_CLASSES, default_config
+    from unidet3d_tpu_torch.models.decoder import UniDecoder
+
+    return UniDecoder(in_channels=16, cls_gather=build_class_table(DATASETS_CLASSES).gather,
+                      angles=default_config().angles, dtype=torch.float32, dropout=dropout,
+                      **_DECODER_KW)
+
+
+def _jax_decoder_parity(dropout):
+    """The flax decoder and the port's at `dropout`, on the same perturbed
+    weights (through from_flax), both out of training: valid query rows
+    within the fp32 tolerance."""
+    from unidet3d_tpu.models.decoder import UniDecoder as JaxDecoder
+
+    from unidet3d_tpu_torch.core.class_table import build_class_table
+    from unidet3d_tpu_torch.core.config import DATASETS_CLASSES, default_config
+
+    cfg = default_config()
+    table = build_class_table(DATASETS_CLASSES)
+    queries, mask, centers, ds = _decoder_inputs()
     args = (jnp.asarray(queries), jnp.asarray(mask), jnp.asarray(centers),
             jnp.asarray(ds))
-
-    kw = dict(num_layers=2, d_model=64, num_heads=2, hidden_dim=128,
-              activation="gelu")
-    jmod = JaxDecoder(dropout=0.0, cls_gather=table.gather, angles=cfg.angles,
-                      dtype=jnp.float32, **kw)
+    jmod = JaxDecoder(dropout=dropout, cls_gather=table.gather, angles=cfg.angles,
+                      dtype=jnp.float32, **_DECODER_KW)
     variables = _perturb(jmod.init(jax.random.PRNGKey(0), *args, False), 3)
     ref = jmod.apply(variables, *args, False)
 
-    mod = UniDecoder(in_channels=cin, cls_gather=table.gather, angles=cfg.angles,
-                     dtype=torch.float32, **kw)
+    mod = _port_decoder(dropout)
     mod.load_state_dict(from_flax(variables))
     with torch.no_grad():
         out = mod(_t(queries), _t(mask), _t(centers), _t(ds))
@@ -104,6 +120,65 @@ def test_decoder_matches_jax_reduced_width():
             getattr(out, name).numpy()[:, mask], np.asarray(getattr(ref, name))[:, mask],
             rtol=1e-4, atol=1e-4, err_msg=name,
         )
+
+
+def test_decoder_matches_jax_reduced_width():
+    _jax_decoder_parity(0.0)
+
+
+def test_decoder_with_dropout_matches_jax_out_of_training():
+    """At dropout 0.3 and train=False neither decoder drops anything."""
+    _jax_decoder_parity(0.3)
+
+
+def test_decoder_without_dropout_trains_with_todays_bits():
+    """At dropout 0 (every config), train=True draws nothing from the
+    generator and gives the eval forward's bits."""
+    from unidet3d_tpu_torch.core.class_table import build_class_table
+    from unidet3d_tpu_torch.core.config import DATASETS_CLASSES, default_config
+    from unidet3d_tpu_torch.models.detector import UniDet3D
+    from unidet3d_tpu_torch.weights import seeded_init_
+
+    mod = seeded_init_(_port_decoder(0.0), 0)
+    inputs = [_t(x) for x in _decoder_inputs()]
+    gen = torch.Generator().manual_seed(7)
+    state = gen.get_state()
+    with torch.no_grad():
+        ref = mod(*inputs)
+        out = mod(*inputs, train=True, generator=gen)
+    assert torch.equal(gen.get_state(), state)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    # The detector hands the config's rate to every dropout point.
+    net = UniDet3D(default_config(dropout=0.25), build_class_table(DATASETS_CLASSES),
+                   device="cpu")
+    assert {m.rate for name, m in net.decoder.named_children()
+            if name.startswith(("attn", "ffn"))} == {0.25}
+
+
+def test_dropout_keeps_its_share_scaled_and_repeats():
+    """flax nn.Dropout at 0.5: about half the values kept, each doubled, the
+    rest 0; equally seeded generators give the same masks; the decoder in
+    training then differs from its eval forward and repeats bit for bit."""
+    from unidet3d_tpu_torch.models.decoder import dropout
+    from unidet3d_tpu_torch.weights import seeded_init_
+
+    x = torch.full((1000, 1000), 3.0)
+    out = dropout(x, 0.5, torch.Generator().manual_seed(1))
+    kept = out != 0
+    assert abs(kept.float().mean().item() - 0.5) <= 0.01
+    assert torch.all(out[kept] == 6.0)
+    assert torch.equal(out, dropout(x, 0.5, torch.Generator().manual_seed(1)))
+    assert not torch.equal(out, dropout(x, 0.5, torch.Generator().manual_seed(2)))
+
+    mod = seeded_init_(_port_decoder(0.5), 0)
+    inputs = [_t(v) for v in _decoder_inputs()]
+    with torch.no_grad():
+        ref = mod(*inputs)
+        runs = [mod(*inputs, train=True, generator=torch.Generator().manual_seed(3))
+                for _ in range(2)]
+    assert torch.equal(runs[0].cls_logits, runs[1].cls_logits)
+    assert not torch.equal(runs[0].cls_logits, ref.cls_logits)
 
 
 def _post_inputs(seed, q=64, p=3000):

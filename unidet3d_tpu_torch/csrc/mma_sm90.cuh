@@ -1,7 +1,7 @@
 // Warp-level tensor-core and async-copy primitives shared by the port's
-// bf16 kernels (attention.cu, attention_bwd.cu, subm_conv.cu): cp.async
-// (16 and 4 bytes, zero-filled when the source is absent), ldmatrix and
-// ldmatrix.trans, mma.sync.m16n8k16 bf16 -> fp32, the bf16 packing of
+// bf16 kernels (attention.cu, attention_bwd.cu, subm_conv.cu,
+// subm_conv_wgrad.cu): cp.async (16 and 4 bytes, zero-filled when the source
+// is absent), ldmatrix and ldmatrix.trans, mma.sync.m16n8k16 bf16 -> fp32, the bf16 packing of
 // fp32 accumulators into A fragments, and ex2.approx. sm_80 and later;
 // the port builds them for sm_90a.
 #pragma once
@@ -55,6 +55,14 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// Two 8x8 matrices, transposed; lanes 0-15 give the addresses (lanes 16-31
+// must still pass a valid one).
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 

@@ -4,9 +4,11 @@ The port of the JAX package's ``models/decoder.py``: an input projection,
 N x (self-attention + FFN), post-norm, and the per-dataset class / box heads
 after the projection and after every layer (L = N + 1 output sets). The
 attention runs the Hopper flash-attention kernels (``ops/attention.py``: K3
-forward, K3-dkv and K3-dq backward) on the card. Dropout is 0.0 in every
-config and is not ported. Flax conventions kept: ``nn.gelu`` is the tanh approximation,
-``nn.LayerNorm`` eps is 1e-6, masked class columns are -1e9.
+forward, K3-dkv and K3-dq backward) on the card. In training, dropout
+(flax ``nn.Dropout``) follows the attention output and the FFN's activation
+and fc2, with masks drawn from the caller's generator. Flax conventions
+kept: ``nn.gelu`` is the tanh approximation, ``nn.LayerNorm`` eps is 1e-6,
+masked class columns are -1e9.
 """
 from __future__ import annotations
 
@@ -29,6 +31,20 @@ class DecoderOutput(NamedTuple):
 
     cls_logits: torch.Tensor
     boxes: torch.Tensor
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)`` in training: each value kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else 0; the mask is
+    drawn from `generator` on its own device, then moved to x's. Rate 0 draws
+    nothing and returns x."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=generator.device) < keep_prob
+    return torch.where(keep.to(x.device), x / keep_prob, x.new_zeros(()))
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -66,34 +82,41 @@ class Attention(nn.Module):
 
 
 class SelfAttentionLayer(nn.Module):
-    """Post-norm MHSA block."""
+    """Post-norm MHSA block, dropout on the attention output in training."""
 
-    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype):
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype,
+                 rate: float = 0.0):
         super().__init__()
+        self.rate = rate
         self.attn = Attention(d_model, num_heads, dtype)
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x, seg):
-        return self.norm(self.attn(x, seg).float() + x)
+    def forward(self, x, seg, train=False, generator=None):
+        z = dropout(self.attn(x, seg).float(), self.rate if train else 0.0, generator)
+        return self.norm(z + x)
 
 
 class FFN(nn.Module):
-    """Post-norm feed-forward block."""
+    """Post-norm feed-forward block, dropout after the activation and after
+    fc2 in training."""
 
     def __init__(self, d_model: int, hidden_dim: int, activation: str,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.rate = rate
         self.activation = activation
         self.fc1 = nn.Linear(d_model, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, d_model)
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x):
+    def forward(self, x, train=False, generator=None):
+        rate = self.rate if train else 0.0
         z = linear(x, self.fc1, self.dtype)
         z = F.gelu(z, approximate="tanh") if self.activation == "gelu" else F.relu(z)
+        z = dropout(z, rate, generator)
         z = linear(z, self.fc2, self.dtype).float()
-        return self.norm(z + x)
+        return self.norm(dropout(z, rate, generator) + x)
 
 
 def decode_boxes(
@@ -139,6 +162,7 @@ class UniDecoder(nn.Module):
         cls_gather: np.ndarray,  # (D, NC_MAX + 1) int32, -1 padding
         angles: tuple,  # (D,) python bools
         dtype: torch.dtype,
+        dropout: float = 0.0,  # flax nn.Dropout rate, training only
     ):
         super().__init__()
         self.dtype = dtype
@@ -160,10 +184,10 @@ class UniDecoder(nn.Module):
         self.box_fc = nn.Linear(d_model, 8)
         for i in range(num_layers):
             self.add_module(
-                f"attn{i}", SelfAttentionLayer(d_model, num_heads, dtype)
+                f"attn{i}", SelfAttentionLayer(d_model, num_heads, dtype, dropout)
             )
             self.add_module(
-                f"ffn{i}", FFN(d_model, hidden_dim, activation, dtype)
+                f"ffn{i}", FFN(d_model, hidden_dim, activation, dtype, dropout)
             )
 
     def _head(self, feats, centers, scene_gather, rotated):
@@ -185,6 +209,8 @@ class UniDecoder(nn.Module):
         query_mask: torch.Tensor,  # (B, Q) bool
         sp_centers: torch.Tensor,  # (B, Q, 3)
         dataset_ids: torch.Tensor,  # (B,) int
+        train: bool = False,
+        generator: torch.Generator | None = None,  # dropout masks in training
     ) -> DecoderOutput:
         ids = dataset_ids.long()
         scene_gather = self.cls_gather[ids]
@@ -196,8 +222,8 @@ class UniDecoder(nn.Module):
         cls_list, box_list = [], []
         for i in range(self.num_layers + 1):
             if i:
-                x = getattr(self, f"attn{i - 1}")(x, seg)
-                x = getattr(self, f"ffn{i - 1}")(x)
+                x = getattr(self, f"attn{i - 1}")(x, seg, train, generator)
+                x = getattr(self, f"ffn{i - 1}")(x, train, generator)
             c, bx = self._head(x, sp_centers, scene_gather, rotated)
             cls_list.append(c)
             box_list.append(bx)

@@ -105,6 +105,7 @@ class UniDet3D(nn.Module):
             cls_gather=table.gather,
             angles=cfg.angles,
             dtype=dtype,
+            dropout=cfg.dropout,
         )
         self.to(device)
         self.eval()
@@ -122,7 +123,8 @@ class UniDet3D(nn.Module):
             train: the training branch (masked batch moments, train frame,
                 random query selection).
             generator: draws the (B, S) query-selection noise in training
-                (on its own device, then moved to the model's).
+                (on its own device, then moved to the model's), then the
+                decoder's dropout masks when cfg.dropout > 0.
             query_noise: (B, S) noise to use instead of drawing it.
         """
         cfg = self.cfg
@@ -179,7 +181,7 @@ class UniDet3D(nn.Module):
             query_sp = torch.arange(s, device=pinv.device).expand(b, s)
             query_valid, queries, centers = sp_valid, sp_feats, sp_centers
         out: DecoderOutput = self.decoder(
-            queries, query_valid, centers, batch.dataset_ids
+            queries, query_valid, centers, batch.dataset_ids, train, generator
         )
         aux = ForwardAux(
             sp_centers=sp_centers,

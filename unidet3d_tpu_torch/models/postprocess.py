@@ -92,7 +92,7 @@ def predict_scene(
     if cfg.angles[dataset_idx]:
         raise NotImplementedError(
             f"dataset {cfg.datasets[dataset_idx]!r} needs rotated-box NMS "
-            "(ops/rotated_iou.py), not ported yet: ROADMAP.md Queue 1, item 7"
+            "(ops/rotated_iou.py), not ported yet: ROADMAP.md Queue 1, item 3"
         )
     sel_boxes, labels, scores = select_topk_instances(
         cls_logits, boxes, query_valid, cfg.topk_insts

@@ -11,7 +11,9 @@ differentiable conv built from them.
     table being symmetric (pair (i, j, o) <=> (j, i, 26 - o)), which a
     GridPack table is.
   * ``subm_conv_wgrad_cuda``: K2, the weight gradient
-    (``csrc/subm_conv_wgrad.cu``, the port of ``subm_conv_dw_pallas``).
+    (``csrc/subm_conv_wgrad.cu``, the port of ``subm_conv_dw_pallas``). In
+    bf16 a GEMM per offset on the tensor cores, rows as its k, whose block
+    shape ``wgrad_tile`` chooses; in fp32 an FMA kernel.
   * ``SubmConvFunction``: the ``torch.autograd.Function`` around the three,
     the port of ``subm_conv_banded``'s custom VJP.
 
@@ -34,8 +36,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # K1's bf16 route (csrc/subm_conv.cu): rows per block, warps (16 rows each),
 # input channels per pipeline step, cp.async ring stages, widest column block.
 _ROWS, _WARPS, _BK, _STAGES, _MAX_COLS = 64, 4, 32, 4, 160
-# Blocks K2 aims to have in flight: 16 per SM of the H100's 132.
-_WGRAD_TARGET_BLOCKS = 16 * 132
+# K2's bf16 route (csrc/subm_conv_wgrad.cu): voxel rows per pipeline step and
+# cp.async ring stages.
+_W_ROWS, _W_STAGES = 32, 3
+# Its compiled instances (MT, NT, GW): Cin tile 16 MT, Cout tile 16 NT, up to
+# 2 GW offsets per block; the kernel source's K2_INSTANCES, in its order.
+WGRAD_INSTANCES = ((1, 2, 4), (2, 2, 2), (4, 2, 2), (2, 4, 2), (2, 5, 2), (2, 6, 2))
+# Blocks per call K2 aims for, per route: 8 or 16 per SM of the H100's 132
+# (the bf16 kernel walks a row range in a loop; the fp32 one takes 64 rows a
+# tile).
+_WGRAD_TARGET_BLOCKS = {torch.bfloat16: 8 * 132, torch.float32: 16 * 132}
+# The chooser's weight of a gathered row per tap and input channel, in
+# bytes: a fifth to a quarter of the 27 taps exist on surface scans, each 2
+# bytes a channel, counted twice since a gather waits on its table read.
+_WGRAD_GATHER_BYTES = 1.0
 
 
 class ConvTile(NamedTuple):
@@ -87,18 +101,24 @@ def kernel_smem_bytes(cols: int) -> int:
 
 @functools.cache
 def _wgrad_kernel():
-    lib = cuda_build.load("subm_conv_wgrad")
-    fn = lib.subm_conv_wgrad
+    fn = cuda_build.load("subm_conv_wgrad").subm_conv_wgrad
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    tile = lib.subm_conv_wgrad_tile
-    tile.argtypes = [ctypes.c_int, ctypes.c_int]
-    tile.restype = ctypes.c_int
-    return fn, tile
+    return fn
+
+
+def wgrad_kernel_smem_bytes(cin_tile: int, cout_tile: int) -> int:
+    """K2's bf16 shared memory per block for the channel tile, as the
+    compiled kernel counts it (-1 for a tile it is not compiled for): the
+    card's check of ``wgrad_tile``."""
+    fn = cuda_build.load("subm_conv_wgrad").subm_conv_wgrad_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn(int(cin_tile), int(cout_tile))
 
 
 def _check(rows, neighbors, n_valid, **tensors):
@@ -209,12 +229,74 @@ def subm_conv_dgrad_cuda(
 subm_conv_dgrad_cuda.launches = 0
 
 
-def _wgrad_splits(n_valid: int, cin: int, cout: int, tile: int) -> int:
-    """Row splits of K2's reduction over voxels: enough blocks to fill the
-    card, and at least 4 row tiles of 64 per split."""
-    tiles = -(-cin // tile) * -(-cout // tile)
-    want = -(-_WGRAD_TARGET_BLOCKS // (27 * tiles))
-    return max(1, min(want, -(-n_valid // 64) // 4))
+class WgradTile(NamedTuple):
+    """The block shape of K2 for one (Cin, Cout) and dtype."""
+
+    cin_tile: int  # input channels per block (the GEMM's m)
+    cout_tile: int  # output channels per block (the GEMM's n)
+    group: int  # consecutive offsets per block
+    blocks: int  # blocks per row split: offset groups x Cin tiles x Cout tiles
+    rows: int  # voxel rows per step of a block's loop
+    acc: int  # fp32 accumulators per thread
+    smem: int  # dynamic shared memory per block, bytes (0: static, fp32 route)
+
+
+def wgrad_smem(mt: int, nt: int, gw: int) -> int:
+    """The kernel's ``WgradSmem``: per ring stage the gathered rows (2 GW
+    offsets x 32 rows x (16 MT + 8) bf16), the gradient rows (32 x (16 NT +
+    8) bf16) and the table slice (2 GW x 32 int32), plus a mask per stage
+    and one more."""
+    tm, tn, gs = 16 * mt, 16 * nt, 2 * gw
+    return (_W_STAGES * (gs * _W_ROWS * (tm + 8) * 2 + _W_ROWS * (tn + 8) * 2
+                         + gs * _W_ROWS * 4) + (_W_STAGES + 1) * 4)
+
+
+def wgrad_tile(cin: int, cout: int, dtype: torch.dtype = torch.bfloat16) -> WgradTile:
+    """K2's block shape for a conv of `cin` -> `cout` channels.
+
+    bf16 (the tensor-core route): among the compiled instances, each with
+    groups of up to 2 GW offsets (the 27 split into groups of equal size),
+    prefer the tiles that pad neither Cin nor Cout past its next multiple of
+    16, then the least traffic per voxel row: each block pass over a row
+    reads its table slice (one 32-byte sector) and its gradient slice (2
+    bytes per Cout-tile channel), and each Cout tile gathers the row's
+    neighbor rows (_WGRAD_GATHER_BYTES per tap and input channel).
+
+    fp32 (the FMA route): 64 x 64 tiles when both widths reach 64, else 32 x
+    32, one offset per block (the grid's 27 offsets), 64 rows per tile."""
+    cin, cout = int(cin), int(cout)
+    if dtype == torch.float32:
+        t = 64 if cin >= 64 and cout >= 64 else 32
+        blocks = 27 * -(-cin // t) * -(-cout // t)
+        return WgradTile(t, t, 1, blocks, 64, (t // 16) ** 2, 0)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"K2 takes fp32 or bf16, not {dtype}")
+    best = None
+    for mt, nt, gw in WGRAD_INSTANCES:
+        tm, tn = 16 * mt, 16 * nt
+        tiles_c, tiles_d = -(-cin // tm), -(-cout // tn)
+        groups = -(-27 // min(27, 2 * gw))
+        group = -(-27 // groups)
+        pads = tiles_c * tm > 16 * -(-cin // 16) or tiles_d * tn > 16 * -(-cout // 16)
+        passes = groups * tiles_c * tiles_d
+        cost = passes * (32 + 2 * tn) + tiles_d * 27 * _WGRAD_GATHER_BYTES * cin
+        tile = WgradTile(tm, tn, group, passes, _W_ROWS, -(-group // 2) * mt * nt * 4,
+                         wgrad_smem(mt, nt, gw))
+        if best is None or (pads, cost) < best[0]:
+            best = ((pads, cost), tile)
+    return best[1]
+
+
+def wgrad_plan(n_valid: int, cin: int, cout: int, dtype: torch.dtype):
+    """(tile, splits, partial scratch shape) of one K2 call: `wgrad_tile`,
+    then row splits enough for the route's target of blocks per call, with
+    at least 256 voxel rows per split; the scratch holds one fp32 (27, Cin,
+    Cout) partial per split, none for one split."""
+    tile = wgrad_tile(cin, cout, dtype)
+    want = -(-_WGRAD_TARGET_BLOCKS[dtype] // tile.blocks)
+    steps = -(-int(n_valid) // tile.rows)
+    splits = max(1, min(want, steps // (256 // tile.rows)))
+    return tile, splits, (splits if splits > 1 else 0, 27, int(cin), int(cout))
 
 
 def subm_conv_wgrad_cuda(
@@ -250,17 +332,14 @@ def subm_conv_wgrad_cuda(
     dw = torch.zeros((27, cin, cout), dtype=torch.float32, device=features.device)
     if n_valid == 0:
         return dw
-    fn, tile = _wgrad_kernel()
-    splits = _wgrad_splits(n_valid, cin, cout, tile(cin, cout))
-    part = torch.empty(
-        (splits if splits > 1 else 0, 27, cin, cout), dtype=torch.float32,
-        device=features.device,
-    )
+    tile, splits, scratch = wgrad_plan(n_valid, cin, cout, features.dtype)
+    part = torch.empty(scratch, dtype=torch.float32, device=features.device)
     with torch.cuda.device(features.device):
-        err = fn(
+        err = _wgrad_kernel()(
             features.data_ptr(), neighbors.data_ptr(), grad.data_ptr(),
-            part.data_ptr(), dw.data_ptr(), v, n_valid, cin, cout, splits,
-            _DTYPES[features.dtype], torch.cuda.current_stream().cuda_stream,
+            part.data_ptr(), dw.data_ptr(), v, n_valid, cin, cout, tile.cin_tile,
+            tile.cout_tile, tile.group, splits, _DTYPES[features.dtype],
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"subm_conv wgrad kernel launch failed: CUDA error {err}")
