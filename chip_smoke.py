@@ -33,7 +33,15 @@ Phases (any failure raises and the script exits non-zero):
      one run counted (37 K1 and 6 K3 per forward, no probe) and the warm
      group time, then one group under torch.profiler (device time by kernel,
      idle share);
-  7. K1, K1' (the conv input gradient: K1 on the mirrored weights) and K2
+  7. [prod-rot]: phase 6 on 4 synthetic ARKitScenes scenes (dataset 5,
+     rotated NMS, no superpoint trimming), with the card time of
+     pairwise_iou_rotated per group, and it under the profiler;
+  8. [map]: the decoder outputs of the groups of phases 6 and 7 through
+     predict_batch on the card and, moved over, on the CPU: equal keep masks
+     outside order swaps of near-equal scores and same-class IoUs within 1e-4
+     of iou_thr, and the same mAP@0.25 / 0.50 from IndoorMetric (random
+     weights: the values say nothing about accuracy);
+  9. K1, K1' (the conv input gradient: K1 on the mirrored weights) and K2
      (the conv weight gradient) against their plain versions at every
      distinct (level, Cin, Cout) of the training step, on the neighbor
      tables of the 8-scene training batch, bf16, each bit-equal on a second
@@ -41,24 +49,31 @@ Phases (any failure raises and the script exits non-zero):
      each shape where a kernel is slower than its index_select + mm
      yardstick marked, and K2's registers, spills and shared memory per
      instance;
-  8. K3 with its logsumexp, and K3-dkv / K3-dq against the plain backward, at
+ 10. K3 with its logsumexp, and K3-dkv / K3-dq against the plain backward, at
      B=8, H=8, L=3072, head dim 32, in bf16 and in fp32 (phase 4's code);
      the bf16 kernels' and SDPA's backward against the fp32 plain backward
      (each kernel within twice SDPA's error), and the backward kernels'
      registers, spills and shared memory from ptxas;
-  9. one fp32 training step on the card against the same step on the CPU,
+ 11. one fp32 training step on the card against the same step on the CPU,
      at full width on two small scenes: loss and every gradient, with the
      card's run-to-run noise read first and the held step run in PyTorch's
      deterministic mode;
- 10. the production training step at full width, bf16: 8 synthetic
+ 12. [train-rot-small]: phase 11 with a MultiScan and an ARKitScenes scene
+     (one deterministic card step against the CPU, the same bounds), then
+     the criterion alone under torch.cuda.set_sync_debug_mode("error");
+ 13. the production training step at full width, bf16: 8 synthetic
      131k-point scenes (4 with ScanNet's flags, 4 with MultiScan's) with
      ground truth, 6 steps of make_train_step on the same collated batch,
      the kernel launches of every step counted (K1 37, K1' 36, K2 37, K3 6,
      K3-dkv 6, K3-dq 6, no probe), a falling loss, the warm step split into
      H2D, forward + loss, backward and optimizer, then one step under
      torch.profiler;
- 11. the `kernels` JSON line (per training step; the probe's modes per probe
-     call), the card's name and power limit, and the final JSON line.
+ 14. [train-rot]: phase 13 on 3 ScanNet, 3 MultiScan and 2 ARKitScenes
+     scenes (GT boxes with yaw) for 4 steps, with the card time of the
+     rotated matcher costs of one step, and them under the profiler;
+ 15. the whole script's wall time, the `kernels` JSON line (per training
+     step of phase 13; the probe's modes per probe call), the card's name
+     and power limit, and the final JSON line.
 Times are CUDA-event means (the conv kernels per shape: the median of 5 such
 means) or synchronised host-clock medians on the card in this run.
 """
@@ -78,9 +93,15 @@ from unidet3d_tpu_torch.core.config import DATASETS_CLASSES, default_config
 from unidet3d_tpu_torch.data.batcher import collate, gt_to_device, to_device
 from unidet3d_tpu_torch.data.synthetic import stripe_superpoints, synthetic_scene
 from unidet3d_tpu_torch.device import card_line, cuda_ms, sm_clock_hz
-from unidet3d_tpu_torch.losses.criterion import match_scene
-from unidet3d_tpu_torch.models.detector import UniDet3D, detection_loss, prepare_gt
-from unidet3d_tpu_torch.models.postprocess import predict_batch
+from unidet3d_tpu_torch.losses.criterion import criterion, match_scene, rotated_costs
+from unidet3d_tpu_torch.models.detector import (
+    UniDet3D,
+    detection_loss,
+    prepare_gt,
+    rotated_scenes_of,
+    scene_flags,
+)
+from unidet3d_tpu_torch.models.postprocess import predict_batch, select_topk_instances
 from unidet3d_tpu_torch.ops import cuda_build
 from unidet3d_tpu_torch.ops.attention import (
     attention_bwd_plain,
@@ -90,6 +111,7 @@ from unidet3d_tpu_torch.ops.attention import (
     flash_attention_dkv_cuda,
     flash_attention_dq_cuda,
 )
+from unidet3d_tpu_torch.ops.nms import pairwise_iou_aa, pairwise_iou_rotated
 from unidet3d_tpu_torch.ops.probe_conv import MODES as PROBE_MODES
 from unidet3d_tpu_torch.ops.probe_conv import probe_conv_cuda
 from unidet3d_tpu_torch.ops.sparse_conv import subm_conv, subm_conv_dgrad, subm_conv_wgrad
@@ -103,6 +125,7 @@ from unidet3d_tpu_torch.ops.subm_conv_cuda import (
 )
 from unidet3d_tpu_torch.parallel.train_step import make_train_step
 from unidet3d_tpu_torch.tools.probe_conv_bottleneck import measure, probe_inputs, run_modes
+from unidet3d_tpu_torch.train.metric import IndoorMetric
 from unidet3d_tpu_torch.train.optim import make_optimizer
 from unidet3d_tpu_torch.weights import seeded_init_
 
@@ -116,6 +139,10 @@ TRAIN_STEPS = 6
 SP_SIZE = 45  # points per superpoint stripe: ~1 superpoint per 45 points
 SP_PER_GT = 20  # ground-truth instances: runs of 20 consecutive stripes
 N_GTS = 64  # instances per training scene
+ARKIT = 5  # ARKitScenes, the rotated dataset of the joint mixture
+# The rotated training batch: 3 ScanNet, 3 MultiScan and 2 ARKitScenes scenes.
+ROT_TRAIN_DATASETS = (0, 0, 0, 2, 2, 2, ARKIT, ARKIT)
+ROT_TRAIN_STEPS = 4
 # The kernels, in the order of the `kernels` line.
 COUNTERS = {
     "subm_conv": subm_conv_cuda,
@@ -487,9 +514,12 @@ def phase_e2e_small(table, card):
           f"boxes {errs['boxes']:.2e} | {card}")
 
 
-def phase_production(samples, table, card, reps=3):
-    """The production eval path at full width: the kernel launches of one
-    run counted from zero, its outputs checked, then its metrics."""
+def phase_production(samples, table, card, dataset_idx=0, tag="prod", reps=3):
+    """The production eval path at full width on one group of `samples` of
+    dataset `dataset_idx`: the kernel launches of one run counted from
+    zero, its outputs checked, then its metrics (for a rotated dataset also
+    the card time of pairwise_iou_rotated over the group's selected boxes).
+    Returns the counted run's device batch and decoder outputs."""
     cfg = default_config()  # full width, bf16, S = 3072, 163840 voxels/scene
     t0 = time.time()
     batch, _, pack = collate(samples, cfg)
@@ -500,16 +530,17 @@ def phase_production(samples, table, card, reps=3):
     def run():
         b, p = to_device(batch, pack, "cuda")
         out, aux = net(b, p)
-        det = predict_batch(cfg, 0, out.cls_logits[-1], out.boxes[-1],
+        det = predict_batch(cfg, dataset_idx, out.cls_logits[-1], out.boxes[-1],
                             aux.query_valid, b.points, b.valid, b.sp_ids)
         torch.cuda.synchronize()
-        return out, aux, det
+        return b, out, aux, det
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    out, aux, det = run()  # the main-path run whose launches are counted
+    b_run, out_run, aux_run, det = run()  # the main-path run whose launches are counted
     launches = read_counts()
-    assert launches == dict(NO_LAUNCHES, subm_conv=37, flash_attention=6), launches
+    assert launches == dict(NO_LAUNCHES, subm_conv=37, flash_attention=6), (tag, launches)
+    out, aux = out_run, aux_run
     nq = cfg.max_superpoints
     assert out.cls_logits.shape == (cfg.num_layers + 1, GROUP, nq, 85)
     assert out.boxes.shape == (cfg.num_layers + 1, GROUP, nq, 7)
@@ -519,6 +550,9 @@ def phase_production(samples, table, card, reps=3):
     assert det.boxes.shape == (GROUP, cfg.topk_insts, 7)
     kept = int(det.valid.sum().item())
     assert kept > 0 and torch.isfinite(det.boxes[det.valid]).all()
+    rotated = cfg.angles[dataset_idx]
+    if rotated:  # detections keep their yaw
+        assert det.boxes[det.valid, 6].abs().max() > 0
 
     group, h2d, fwd, post = [], [], [], []
     for _ in range(reps):
@@ -530,7 +564,7 @@ def phase_production(samples, table, card, reps=3):
             out, aux = net(b, p)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            predict_batch(cfg, 0, out.cls_logits[-1], out.boxes[-1],
+            predict_batch(cfg, dataset_idx, out.cls_logits[-1], out.boxes[-1],
                           aux.query_valid, b.points, b.valid, b.sp_ids)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
@@ -540,17 +574,87 @@ def phase_production(samples, table, card, reps=3):
         post.append((t3 - t2) * 1e3)
     g = statistics.median(group)
     n_sp = int(aux.query_valid.sum().item())
-    print(f"[prod] {GROUP} scenes x {SCENE_POINTS} pts, voxels/level "
-          f"{list(pack.n_valid)}, {n_sp} valid queries | {card}")
-    print(f"[prod] host pack (numpy rulebooks) {pack_s:.2f} s | {card}")
-    print(f"[prod] warm median group {g:.1f} ms over {reps} runs "
+    print(f"[{tag}] {GROUP} scenes x {SCENE_POINTS} pts (dataset {cfg.datasets[dataset_idx]}), "
+          f"voxels/level {list(pack.n_valid)}, {n_sp} valid queries | {card}")
+    print(f"[{tag}] host pack (numpy rulebooks) {pack_s:.2f} s | {card}")
+    print(f"[{tag}] warm median group {g:.1f} ms over {reps} runs "
           f"({GROUP / (g / 1e3):.2f} scenes/s): H2D {statistics.median(h2d):.1f} ms, "
           f"forward {statistics.median(fwd):.1f} ms, post-processing "
           f"{statistics.median(post):.1f} ms, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB | {card}")
-    print(f"[prod] launches per forward: K1 {launches['subm_conv']}, "
+    print(f"[{tag}] launches per forward: K1 {launches['subm_conv']}, "
           f"K3 {launches['flash_attention']}; detections kept {kept} | {card}")
-    phase_profile(run, card, "one group")
+    if rotated:
+        iou_ms = cuda_ms(lambda: [pairwise_iou_rotated(x) for x in det.boxes], reps=3)
+        print(f"[{tag}] pairwise_iou_rotated over the group's {GROUP} x {cfg.topk_insts} "
+              f"selected boxes: {iou_ms:.2f} ms of card time per group (CUDA events, mean "
+              f"of 3) | {card}")
+        phase_profile(lambda: ([pairwise_iou_rotated(x) for x in det.boxes],
+                               torch.cuda.synchronize()),
+                      card, f"pairwise_iou_rotated of one group ({tag})", top=6)
+    phase_profile(run, card, f"one group ({tag})")
+    return b_run, out_run, aux_run
+
+
+def map_inputs(cfg, dataset_idx, out, aux, b, device):
+    """predict_batch's inputs from a group's decoder outputs, on `device`."""
+    return (cfg, dataset_idx, *(x.to(device) for x in (
+        out.cls_logits[-1], out.boxes[-1], aux.query_valid, b.points, b.valid, b.sp_ids)))
+
+
+def phase_map(groups, card):
+    """The eval end on the card against the CPU: each group's decoder
+    outputs (groups: [(dataset index, samples with GT, device batch,
+    decoder outputs, aux)]) go through predict_batch on the card and, moved
+    over, on the CPU. The keep masks must agree except at detections that
+    an order swap of near-equal scores moved, or that have a same-class IoU
+    within 1e-4 of the dataset's iou_thr among the selected boxes; then
+    IndoorMetric.compute must give the same mAP@0.25 / 0.50 from both."""
+    cfg = default_config()
+    metrics = {dev: IndoorMetric(cfg, DATASETS_CLASSES) for dev in ("cuda", "cpu")}
+    swapped = ambiguous = differ = 0
+    for ds, samples, b, out, aux in groups:
+        thr = cfg.iou_thr[ds]
+        dets = {dev: predict_batch(*map_inputs(cfg, ds, out, aux, b, dev))
+                for dev in ("cuda", "cpu")}
+        for i, sample in enumerate(samples):
+            sel = {dev: select_topk_instances(out.cls_logits[-1, i].to(dev),
+                                              out.boxes[-1, i].to(dev),
+                                              aux.query_valid[i].to(dev), cfg.topk_insts)
+                   for dev in ("cuda", "cpu")}
+            boxes, labels, scores = sel["cpu"]
+            moved = ((sel["cuda"][1].cpu() != labels)
+                     | (sel["cuda"][0].cpu() != boxes).any(-1))
+            if moved.any():  # only where the scores tie to within 1e-6
+                assert (sel["cuda"][2].cpu() - scores)[moved].abs().max() <= 1e-6, (ds, i)
+            iou = pairwise_iou_rotated(boxes) if cfg.angles[ds] else pairwise_iou_aa(boxes)
+            near = ((iou - thr).abs() < 1e-4) & (labels[:, None] == labels[None, :])
+            near.fill_diagonal_(False)
+            near = near.any(1)
+            keep = {dev: d.valid[i].cpu() for dev, d in dets.items()}
+            bad = (keep["cuda"] != keep["cpu"]) & ~moved & ~near
+            assert not bad.any(), (ds, i, int(bad.sum()))
+            swapped += int(moved.sum())
+            ambiguous += int(near.sum())
+            differ += int((keep["cuda"] != keep["cpu"]).sum())
+            gt_boxes = np.zeros((len(sample["gt_bboxes_3d"]), 7), np.float32)
+            gt_boxes[:, :sample["gt_bboxes_3d"].shape[1]] = sample["gt_bboxes_3d"]
+            for dev, d in dets.items():
+                metrics[dev].process(ds, *(x[i].cpu().numpy() for x in d), gt_boxes,
+                                     sample["gt_labels_3d"])
+    res = {dev: m.compute(logger=None) for dev, m in metrics.items()}
+    for name, ref in res["cpu"].items():
+        vals = {k: (res["cuda"][name][k], ref[k]) for k in ("mAP_0.25", "mAP_0.50")}
+        for k, (a, r) in vals.items():
+            assert abs(a - r) <= 1e-6, (name, k, a, r)
+        print(f"[map] {name}: card " + ", ".join(f"{k} {a:.6f}" for k, (a, _) in vals.items())
+              + "; CPU " + ", ".join(f"{k} {r:.6f}" for k, (_, r) in vals.items())
+              + f" ({GROUP} scenes) | {card}")
+    print(f"[map] keep masks card vs CPU: {differ} of {len(groups) * GROUP * cfg.topk_insts} "
+          f"detections differ, all among the {swapped} moved by order swaps of near-equal "
+          f"scores and the {ambiguous} with a same-class IoU within 1e-4 of iou_thr. The "
+          f"weights are random: these mAP values say nothing about accuracy, only that card "
+          f"and CPU agree | {card}")
 
 
 def phase_profile(run, card, what, top=12):
@@ -591,15 +695,18 @@ def phase_profile(run, card, what, top=12):
     return idle
 
 
-def train_scenes(n_scenes, n_points, seed0, n_gts):
-    """Synthetic training scenes with ground truth: the first half with
-    ScanNet's flags (host superpoint masks, boxes from instance masks), the
-    rest with MultiScan's (raw boxes, distance top-k masks). Instance k is
-    the run of SP_PER_GT consecutive stripe superpoints from k * SP_PER_GT,
-    its box the bounds of its points."""
+def train_scenes(n_scenes, n_points, seed0, n_gts, datasets=None):
+    """Synthetic training scenes with ground truth. `datasets` gives each
+    scene's dataset index; by default the first half take ScanNet's flags
+    (host superpoint masks, boxes from instance masks), the rest MultiScan's
+    (raw boxes, distance top-k masks). Instance k is the run of SP_PER_GT
+    consecutive stripe superpoints from k * SP_PER_GT, its box the bounds of
+    its points; an ARKitScenes scene's boxes also get a yaw each, drawn
+    uniformly in [-pi, pi) from the scene's seed."""
+    if datasets is None:
+        datasets = [0 if i < n_scenes // 2 else 2 for i in range(n_scenes)]
     samples = []
-    for i in range(n_scenes):
-        ds = 0 if i < n_scenes // 2 else 2
+    for i, ds in enumerate(datasets):
         rng = np.random.RandomState(seed0 + i)
         pts = synthetic_scene(n_points, seed=seed0 + i)
         sp = stripe_superpoints(pts, SP_SIZE)
@@ -608,10 +715,14 @@ def train_scenes(n_scenes, n_points, seed0, n_gts):
         inst = inst_of_sp[sp]
         lo = np.stack([pts[inst == k, :3].min(0) for k in range(n_gts)])
         hi = np.stack([pts[inst == k, :3].max(0) for k in range(n_gts)])
+        boxes = np.concatenate([(lo + hi) / 2, hi - lo], 1).astype(np.float32)
+        labels = rng.randint(0, len(DATASETS_CLASSES[ds]), n_gts)
+        if ds == ARKIT:
+            yaw = rng.uniform(-np.pi, np.pi, (n_gts, 1)).astype(np.float32)
+            boxes = np.concatenate([boxes, yaw], 1)
         samples.append({
             "points": pts, "dataset_idx": ds, "sp_pts_mask": sp,
-            "gt_bboxes_3d": np.concatenate([(lo + hi) / 2, hi - lo], 1).astype(np.float32),
-            "gt_labels_3d": rng.randint(0, len(DATASETS_CLASSES[ds]), n_gts),
+            "gt_bboxes_3d": boxes, "gt_labels_3d": labels,
             "gt_sp_masks": inst_of_sp[None, :] == np.arange(n_gts)[:, None],
             "pts_instance_mask": inst,
         })
@@ -641,6 +752,56 @@ def worst_by_part(rows: list) -> str:
     return ", ".join(f"{part} {r[0][0]:.3f} ({r[0][1]})" for part, r in parts.items())
 
 
+def small_train(table, datasets, seed0):
+    """Two small training scenes of `datasets` at full width, fp32, and a
+    function running one training step on them from the same weights and
+    the same query draw: one(device) -> (loss, grad_norm, {name: grad})."""
+    n_points = 8192
+    cfg = default_config(compute_dtype="float32", max_points=n_points,
+                         voxel_capacity=n_points, max_superpoints=256, max_gts=16,
+                         query_thr=160)
+    batch, gt, pack = collate(train_scenes(2, n_points, seed0, n_gts=8, datasets=datasets), cfg)
+    init = seeded_init_(UniDet3D(cfg, table, device="cpu"), 0).state_dict()
+
+    def one(device):
+        model = UniDet3D(cfg, table, device=device)
+        model.load_state_dict(init)
+        step = make_train_step(model, cfg, make_optimizer(model.parameters()))
+        b, p = to_device(batch, pack, device)
+        m = step(b, gt_to_device(gt, device), p, torch.Generator().manual_seed(3),
+                 host_dataset_ids=batch.dataset_ids)
+        grads = {n: x.grad.detach().cpu() for n, x in model.named_parameters()}
+        return float(m["loss"]), float(m["grad_norm"]), grads
+
+    return cfg, batch, gt, pack, init, one
+
+
+def deterministic_card_step(one):
+    """one("cuda") in PyTorch's deterministic mode, with its launches
+    counted from zero: (loss, grad_norm, grads, launches)."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset_counts()
+        loss, norm, grads = one("cuda")
+        torch.cuda.synchronize()
+        return loss, norm, grads, read_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def assert_card_step_like_cpu(tag, card_step, cpu_step, vs_cpu):
+    """The bounds of a card training step against the CPU's: the launches
+    of a step, the loss within 1e-5 and the gradient norm within 1e-4 of
+    the CPU's, every gradient within its grad_ratios bound."""
+    loss, norm, _, launches = card_step
+    loss_ref, norm_ref, _ = cpu_step
+    assert launches == TRAIN_LAUNCHES, (tag, launches)
+    assert abs(loss - loss_ref) <= 1e-5 * abs(loss_ref), (tag, loss, loss_ref)
+    assert abs(norm - norm_ref) <= 1e-4 * norm_ref, (tag, norm, norm_ref)
+    ratio, name = vs_cpu[0]
+    assert ratio <= 1.0, f"{tag}: card vs CPU gradient {name}: {ratio:.3f} of its bound"
+
+
 def phase_train_small(table, card):
     """One fp32 training step at full width on two small scenes, from the
     same weights and the same query draw, on the CPU (plain versions) and
@@ -649,60 +810,83 @@ def phase_train_small(table, card):
     atomics): the worst difference between two successive ones is the
     card's run-to-run noise. The last two run in deterministic mode, must
     agree bit for bit, and the first of them is held against the CPU."""
-    n_points = 8192
-    cfg = default_config(compute_dtype="float32", max_points=n_points,
-                         voxel_capacity=n_points, max_superpoints=256, max_gts=16,
-                         query_thr=160)
-    batch, gt, pack = collate(train_scenes(2, n_points, 300, n_gts=8), cfg)
-    init = seeded_init_(UniDet3D(cfg, table, device="cpu"), 0).state_dict()
-
-    def one(device):
-        model = UniDet3D(cfg, table, device=device)
-        model.load_state_dict(init)
-        step = make_train_step(model, cfg, make_optimizer(model.parameters()))
-        b, p = to_device(batch, pack, device)
-        m = step(b, gt_to_device(gt, device), p, torch.Generator().manual_seed(3))
-        grads = {n: x.grad.detach().cpu() for n, x in model.named_parameters()}
-        return float(m["loss"]), float(m["grad_norm"]), grads
-
-    loss_ref, norm_ref, g_ref = one("cpu")
+    cfg, *_, one = small_train(table, None, 300)
+    cpu_step = one("cpu")
     noisy = [one("cuda")[2] for _ in range(NOISE_STEPS)]
-    torch.use_deterministic_algorithms(True)
-    reset_counts()
-    loss, norm, grads = one("cuda")
-    torch.cuda.synchronize()
-    launches = read_counts()
-    repeat = one("cuda")[2]
-    torch.use_deterministic_algorithms(False)
+    card_step = deterministic_card_step(one)
+    repeat = deterministic_card_step(one)[2]
+    loss, norm, grads, _ = card_step
     changed = [n for n in grads if not torch.equal(grads[n], repeat[n])]
     noise = sorted(r for a, b in zip(noisy, noisy[1:]) for r in grad_ratios(a, b))[::-1]
-    vs_cpu = grad_ratios(grads, g_ref)
-    print(f"[train-small] 2 scenes x {n_points} pts, fp32, full width: loss card "
-          f"{loss:.6f} CPU {loss_ref:.6f}, grad_norm card {norm:.5f} CPU {norm_ref:.5f}; "
-          f"deterministic repeat differs in {len(changed)} of {len(grads)} gradients "
-          f"| {card}")
+    vs_cpu = grad_ratios(grads, cpu_step[2])
+    print(f"[train-small] 2 scenes x {cfg.max_points} pts, fp32, full width: loss card "
+          f"{loss:.6f} CPU {cpu_step[0]:.6f}, grad_norm card {norm:.5f} CPU "
+          f"{cpu_step[1]:.5f}; deterministic repeat differs in {len(changed)} of "
+          f"{len(grads)} gradients | {card}")
     print(f"[train-small] worst gradient error / bound (backbone: norm, "
           f"{BACKBONE_RTOL:g}; rest: max, {HEAD_RTOL:g}); {NOISE_STEPS} card steps, "
           f"default algorithms, each vs the next: {worst_by_part(noise)}; card "
           f"(deterministic) vs CPU: {worst_by_part(vs_cpu)} | {card}")
-    assert launches == TRAIN_LAUNCHES, launches
+    assert_card_step_like_cpu("train-small", card_step, cpu_step, vs_cpu)
     assert not changed, f"the deterministic card step did not repeat: {changed}"
-    assert abs(loss - loss_ref) <= 1e-5 * abs(loss_ref), (loss, loss_ref)
-    assert abs(norm - norm_ref) <= 1e-4 * norm_ref, (norm, norm_ref)
-    ratio, name = vs_cpu[0]
-    assert ratio <= 1.0, f"card vs CPU gradient {name}: {ratio:.3f} of its bound"
 
 
-def phase_train(batch, gt, pack, pack_s, table, card, split_reps=3):
+def phase_train_rot_small(table, card):
+    """[train-small] with a MultiScan and an ARKitScenes scene (GT boxes
+    with yaw): one fp32 step at full width on the CPU (plain versions) and
+    one on the card (kernels, deterministic mode), held to [train-small]'s
+    bounds. Then, from the same weights, the card's criterion alone under
+    torch.cuda.set_sync_debug_mode("error"): the rotated branch reads
+    nothing back from the card, and gives the step's loss."""
+    cfg, batch, gt, pack, init, one = small_train(table, (2, ARKIT), 400)
+    cpu_step = one("cpu")
+    card_step = deterministic_card_step(one)
+    vs_cpu = grad_ratios(card_step[2], cpu_step[2])
+
+    model = UniDet3D(cfg, table, device="cuda")
+    model.load_state_dict(init)
+    b, p = to_device(batch, pack, "cuda")
+    g = gt_to_device(gt, "cuda")
+    out, aux = model(b, p, train=True, generator=torch.Generator().manual_seed(3))
+    scene_gt = prepare_gt(cfg, b, g, aux)
+    flags = scene_flags(cfg, b.dataset_ids)
+    rotated = rotated_scenes_of(cfg, batch.dataset_ids)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = criterion(out.cls_logits, out.boxes, aux.query_valid, scene_gt, *flags,
+                         loss_weight=cfg.loss_weight, non_object_weight=cfg.non_object_weight,
+                         rotated_scenes=rotated)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    loss = float(loss.detach())
+    print(f"[train-rot-small] 2 scenes x {cfg.max_points} pts (datasets "
+          f"{batch.dataset_ids.tolist()}, rotated {list(rotated)}), fp32, full width: loss "
+          f"card {card_step[0]:.6f} CPU {cpu_step[0]:.6f}, grad_norm card {card_step[1]:.5f} "
+          f"CPU {cpu_step[1]:.5f}; worst gradient error / bound, card (deterministic) vs "
+          f"CPU: {worst_by_part(vs_cpu)} | {card}")
+    print(f"[train-rot-small] the criterion under set_sync_debug_mode('error'): no "
+          f"synchronising call, loss {loss:.6f} (default mode) | {card}")
+    assert_card_step_like_cpu("train-rot-small", card_step, cpu_step, vs_cpu)
+    assert abs(loss - card_step[0]) <= 1e-5 * abs(card_step[0]), (loss, card_step[0])
+
+
+def phase_train(batch, gt, pack, pack_s, table, card, tag="train", steps=TRAIN_STEPS,
+                split_reps=3):
     """The production training step at full width, bf16, on one collated
-    8-scene batch: TRAIN_STEPS steps of make_train_step with the launches of
+    8-scene batch: `steps` steps of make_train_step with the launches of
     each counted from zero, then split-timed steps and one profiled step.
-    Every step draws the same queries (a generator seeded alike), so the
-    loss on the fixed batch must fall."""
+    Every step draws the same queries (a generator seeded alike); [train]'s
+    loss on the fixed batch must fall, every loss must be finite. With
+    rotated scenes in the batch, the card time of the rotated matcher
+    costs of one step is taken apart (CUDA events around rotated_costs on
+    the first step's boxes)."""
     cfg = default_config()
     net = seeded_init_(UniDet3D(cfg, table, device="cuda"), 0)
     opt = make_optimizer(net.parameters())
     step = make_train_step(net, cfg, opt)
+    host_ids = batch.dataset_ids
+    rotated = rotated_scenes_of(cfg, host_ids)
 
     def gen():
         return torch.Generator().manual_seed(0)
@@ -712,17 +896,17 @@ def phase_train(batch, gt, pack, pack_s, table, card, split_reps=3):
         lambda mod, args, out: captured.__setitem__("out", out))
     torch.cuda.reset_peak_memory_stats()
     losses, norms, step_ms = [], [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
         b, p = to_device(batch, pack, "cuda")
         g = gt_to_device(gt, "cuda")
-        metrics = step(b, g, p, gen())
+        metrics = step(b, g, p, gen(), host_dataset_ids=host_ids)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         launches = read_counts()
-        assert launches == TRAIN_LAUNCHES, (i, launches)
+        assert launches == TRAIN_LAUNCHES, (tag, i, launches)
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
         if i == 0:
@@ -732,22 +916,34 @@ def phase_train(batch, gt, pack, pack_s, table, card, split_reps=3):
                 sgt = prepare_gt(cfg, b, g, aux)
                 topk = torch.as_tensor(cfg.topk, device="cuda")[b.dataset_ids.long()]
                 pairs = [match_scene(out.cls_logits[layer], out.boxes[layer], aux.query_valid,
-                                     sgt, topk).pair_valid.sum((1, 2)).tolist()
+                                     sgt, topk, rotated_scenes=rotated).pair_valid.sum((1, 2)).tolist()
                          for layer in (0, cfg.num_layers)]
+                if rotated:  # every output set's costs of the rotated scenes
+                    bq = torch.stack([out.boxes[:, j] for j in rotated], 1)
+                    bg = torch.stack([sgt.boxes[j] for j in rotated])
+                    rot_ms = cuda_ms(lambda: rotated_costs(bq, bg), reps=3)
             assert all(n > 0 for n in pairs[1]), pairs
             n_gt = gt.valid.sum(1).tolist()
             n_q = aux.query_valid.sum(1).tolist()
-            print(f"[train] {TRAIN_BATCH} scenes x {SCENE_POINTS} pts (datasets "
-                  f"{batch.dataset_ids.tolist()}), voxels/level {list(pack.n_valid)}, "
+            print(f"[{tag}] {len(host_ids)} scenes x {SCENE_POINTS} pts (datasets "
+                  f"{host_ids.tolist()}), voxels/level {list(pack.n_valid)}, "
                   f"valid queries {n_q}, GTs {n_gt}, matched pairs at step 1 "
                   f"(first / last output set) {pairs[0]} / {pairs[1]} | {card}")
-            print(f"[train] launches per step: " + ", ".join(
+            print(f"[{tag}] launches per step: " + ", ".join(
                 f"{k} {v}" for k, v in launches.items()) + f" | {card}")
-        print(f"[train] step {i + 1}: loss {losses[-1]:.6f} grad_norm {norms[-1]:.5f} "
+            if rotated:
+                print(f"[{tag}] rotated matcher costs (scenes {list(rotated)}, "
+                      f"{cfg.num_layers + 1} output sets x {aux.query_valid.shape[1]} queries x "
+                      f"{cfg.max_gts} GTs each, chunks of 128 queries): {rot_ms:.2f} ms of card "
+                      f"time per step (CUDA events, mean of 3) | {card}")
+                phase_profile(lambda: (rotated_costs(bq, bg), torch.cuda.synchronize()),
+                              card, f"the rotated matcher costs of one step ({tag})", top=6)
+        print(f"[{tag}] step {i + 1}: loss {losses[-1]:.6f} grad_norm {norms[-1]:.5f} "
               f"step {step_ms[-1]:.1f} ms | {card}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses, norms)
-    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    if tag == "train":
+        assert losses[-1] < losses[0], f"loss did not fall: {losses}"
 
     h2d, fwd, bwd, optim = [], [], [], []
     for _ in range(split_reps):  # the step's body, synchronised between parts
@@ -757,7 +953,7 @@ def phase_train(batch, gt, pack, pack_s, table, card, split_reps=3):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out, aux = net(b, p, train=True, generator=gen())
-        loss = detection_loss(cfg, out, aux, b, g)
+        loss = detection_loss(cfg, out, aux, b, g, host_ids)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         opt.zero_grad()
@@ -771,19 +967,20 @@ def phase_train(batch, gt, pack, pack_s, table, card, split_reps=3):
             acc.append((z - a) * 1e3)
     med = statistics.median
     warm = med(step_ms[1:])
-    print(f"[train] host pack (numpy rulebooks) {pack_s:.2f} s for {TRAIN_BATCH} scenes | {card}")
-    print(f"[train] warm median step {warm:.1f} ms over steps 2-{TRAIN_STEPS} "
-          f"({TRAIN_BATCH / (warm / 1e3):.2f} scenes/s), peak {peak:.1f} GiB | {card}")
-    print(f"[train] split (median of {split_reps} synchronised steps): H2D {med(h2d):.1f} ms, "
+    n = len(host_ids)
+    print(f"[{tag}] host pack (numpy rulebooks) {pack_s:.2f} s for {n} scenes | {card}")
+    print(f"[{tag}] warm median step {warm:.1f} ms over steps 2-{steps} "
+          f"({n / (warm / 1e3):.2f} scenes/s), peak {peak:.1f} GiB | {card}")
+    print(f"[{tag}] split (median of {split_reps} synchronised steps): H2D {med(h2d):.1f} ms, "
           f"forward+loss {med(fwd):.1f} ms, backward {med(bwd):.1f} ms, optimizer "
           f"{med(optim):.1f} ms | {card}")
 
     def run():
         b, p = to_device(batch, pack, "cuda")
-        step(b, gt_to_device(gt, "cuda"), p, gen())
+        step(b, gt_to_device(gt, "cuda"), p, gen(), host_dataset_ids=host_ids)
         torch.cuda.synchronize()
 
-    phase_profile(run, card, "one training step", top=16)
+    phase_profile(run, card, f"one training step ({tag})", top=16)
     return launches
 
 
@@ -792,6 +989,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's chip smoke needs the card",
               file=sys.stderr)
         return 1
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -801,7 +999,8 @@ def main() -> int:
     probe = phase_probe(card)
     cfg = default_config()
     table = build_class_table(DATASETS_CLASSES)
-    samples = make_scenes(GROUP, SCENE_POINTS)
+    # The eval group: ScanNet's flags; its ground truth is read by [map] only.
+    samples = train_scenes(GROUP, SCENE_POINTS, 0, N_GTS, datasets=(0,) * GROUP)
     _, _, pack_np = collate(samples, cfg)
     phase_conv(pack_np, cfg.num_planes, card, backward=False,
                ptxas=ptxas.get("subm_conv", ()))
@@ -809,7 +1008,11 @@ def main() -> int:
     phase_attention(n_sp, cfg.max_superpoints, card, backward=False,
                     ptxas=ptxas.get("attention", ()))
     phase_e2e_small(table, card)
-    phase_production(samples, table, card)
+    prod = phase_production(samples, table, card)
+    rot_samples = train_scenes(GROUP, SCENE_POINTS, 20, N_GTS, datasets=(ARKIT,) * GROUP)
+    prod_rot = phase_production(rot_samples, table, card, dataset_idx=ARKIT, tag="prod-rot")
+    phase_map([(0, samples, *prod), (ARKIT, rot_samples, *prod_rot)], card)
+    del prod, prod_rot
 
     train_samples = train_scenes(TRAIN_BATCH, SCENE_POINTS, 0, N_GTS)
     t0 = time.time()
@@ -821,7 +1024,13 @@ def main() -> int:
     attn = phase_attention(n_q, cfg.max_superpoints, card, backward=True,
                            ptxas=ptxas.get("attention_bwd", ()))
     phase_train_small(table, card)
+    phase_train_rot_small(table, card)
     launches = phase_train(batch, gt, pack, pack_s, table, card)
+    t0 = time.time()
+    rot_batch, rot_gt, rot_pack = collate(
+        train_scenes(TRAIN_BATCH, SCENE_POINTS, 0, N_GTS, datasets=ROT_TRAIN_DATASETS), cfg)
+    phase_train(rot_batch, rot_gt, rot_pack, time.time() - t0, table, card, tag="train-rot",
+                steps=ROT_TRAIN_STEPS)
 
     sources = {
         "subm_conv": ("unidet3d_tpu_torch/csrc/subm_conv.cu",
@@ -866,6 +1075,7 @@ def main() -> int:
           "(one 131,072-point scene, level 0, 32->32, bf16; bound: the bytes over 3.35 TB/s "
           "against the operations the mode's function needs over 989 TFLOP/s bf16; "
           "library: index_select+mm, embedding_bag, einsum, einsum)")
+    print(f"[time] the whole script: {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

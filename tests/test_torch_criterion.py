@@ -212,8 +212,17 @@ def test_criterion_total_and_grads_match_jax():
 
 
 def test_criterion_rotated_scene_not_ported():
+    """Formerly: a rotated scene raised. Rotated scenes are ported now
+    (tests/test_torch_rotated_criterion.py holds them in full); here a batch
+    with one rotated scene gives the JAX package's loss."""
+    from unidet3d_tpu.losses.criterion import criterion as jax_criterion
+
     prob = _problem(3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcrit.criterion(_t(prob["logits"]), _t(prob["boxes"]), _t(prob["query_valid"]),
-                        _port_gt(prob), _t(np.array([False, True])),
-                        _t(np.array([6, 3])), _t(np.ones(2, np.float32)))
+    rotated, topk, weights = np.array([False, True]), np.array([6, 3]), np.ones(2, np.float32)
+    ref = jax.jit(jax_criterion)(
+        jnp.asarray(prob["logits"]), jnp.asarray(prob["boxes"]),
+        jnp.asarray(prob["query_valid"]), _jax_gt(prob), jnp.asarray(rotated),
+        jnp.asarray(topk), jnp.asarray(weights))
+    total = tcrit.criterion(_t(prob["logits"]), _t(prob["boxes"]), _t(prob["query_valid"]),
+                            _port_gt(prob), _t(rotated), _t(topk), _t(weights))
+    np.testing.assert_allclose(float(total), float(ref), rtol=1e-5)

@@ -229,11 +229,21 @@ def test_predict_scene_matches_jax(dataset_idx):
 
 
 def test_predict_scene_rotated_dataset_not_ported():
+    """Formerly: a rotated dataset raised. ARKitScenes (dataset 5) is ported
+    now (tests/test_torch_indoor_eval.py holds it against the JAX package):
+    its detections keep their query's yaw, where the others' is zeroed."""
     from unidet3d_tpu_torch.core.config import default_config
     from unidet3d_tpu_torch.models.postprocess import predict_scene
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predict_scene(default_config(), 5, *(_t(x) for x in _post_inputs(0)))
+    logits, boxes, *rest = _post_inputs(0)
+    boxes[:, 6] = np.random.RandomState(1).uniform(-np.pi, np.pi, len(boxes))
+    det = predict_scene(default_config(), 5, _t(logits), _t(boxes), *(_t(x) for x in rest))
+    assert det.valid.any()
+    yaws = set(np.round(boxes[:, 6], 6).tolist())
+    assert set(np.round(det.boxes[det.valid, 6].numpy(), 6).tolist()) <= yaws
+    assert det.boxes[det.valid, 6].abs().max() > 0
+    aa = predict_scene(default_config(), 2, _t(logits), _t(boxes), *(_t(x) for x in rest))
+    assert torch.all(aa.boxes[:, 6] == 0)
 
 
 def test_from_flax_rejects_unknown_leaves():

@@ -27,9 +27,10 @@ CAPS = dict(max_points=2048, voxel_capacity=2048, max_superpoints=128, max_gts=1
             num_layers=2, d_model=64, num_heads=2, hidden_dim=64)
 
 
-def _sample(seed, dataset_idx, n_classes):
+def _sample(seed, dataset_idx, n_classes, rotated=False):
     """A synthetic scene with instances made of runs of 5 consecutive stripe
-    superpoints, boxes at their points' bounds."""
+    superpoints, boxes at their points' bounds (with `rotated`, each given a
+    yaw drawn uniformly in [-pi, pi))."""
     from unidet3d_tpu_torch.data.synthetic import stripe_superpoints, synthetic_scene
 
     rng = np.random.RandomState(seed)
@@ -43,9 +44,13 @@ def _sample(seed, dataset_idx, n_classes):
     boxes = np.stack([np.concatenate([(pts[inst == k, :3].max(0) + pts[inst == k, :3].min(0)) / 2,
                                       pts[inst == k, :3].max(0) - pts[inst == k, :3].min(0)])
                       for k in range(n_inst)]).astype(np.float32)
+    labels = rng.randint(0, n_classes, n_inst)
+    if rotated:
+        yaw = rng.uniform(-np.pi, np.pi, (n_inst, 1)).astype(np.float32)
+        boxes = np.concatenate([boxes, yaw], 1)
     return {"points": pts, "dataset_idx": dataset_idx, "sp_pts_mask": sp,
             "gt_bboxes_3d": boxes,
-            "gt_labels_3d": rng.randint(0, n_classes, n_inst),
+            "gt_labels_3d": labels,
             "gt_sp_masks": inst_of_sp[None, :] == np.arange(n_inst)[:, None],
             "pts_instance_mask": inst}
 
@@ -71,8 +76,10 @@ def _perturb(variables, seed):
     return jax.tree_util.tree_map_with_path(leaf, jax.device_get(variables))
 
 
-@pytest.fixture(scope="module")
-def both():
+def run_both(samples):
+    """One training step of the JAX package and of the port on `samples`,
+    from the same variables and the same query draw; the port's step is
+    told the batch's dataset ids on the host."""
     from unidet3d_tpu.core.class_table import build_class_table as jax_table
     from unidet3d_tpu.core.config import default_config as jax_config
     from unidet3d_tpu.data.batcher import collate as jax_collate
@@ -85,8 +92,6 @@ def both():
     from unidet3d_tpu_torch.parallel.train_step import make_train_step
     from unidet3d_tpu_torch.train.optim import make_optimizer
     from unidet3d_tpu_torch.weights import from_flax
-
-    samples = [_sample(0, 0, 18), _sample(1, 2, 17)]  # ScanNet, MultiScan
 
     jcfg = jax_config(subm_impl="xla", **CAPS)
     model = UniDet3DTPU(cfg=jcfg, table=jax_table(DATASETS_CLASSES))
@@ -109,7 +114,7 @@ def both():
         jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
     # detector.py: fold_in(make_rng("queries"), scene) -> uniform((S,)).
     rng = _QueryRng().apply({}, rngs={"queries": key})
-    keys = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(rng, jnp.arange(2))
+    keys = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(rng, jnp.arange(len(samples)))
     noise = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (CAPS["max_superpoints"],)))(keys))
 
     cfg = default_config(**CAPS)
@@ -122,13 +127,19 @@ def both():
     captured = {}
     hook = net.register_forward_hook(
         lambda mod, args, out: captured.__setitem__("query_sp", out[1].query_sp))
-    metrics = step(tb, gt_to_device(gt, "cpu"), tp, query_noise=torch.from_numpy(noise))
+    metrics = step(tb, gt_to_device(gt, "cpu"), tp, query_noise=torch.from_numpy(noise),
+                   host_dataset_ids=batch.dataset_ids)
     hook.remove()
     return dict(loss=float(loss), grads=from_flax({"params": jax.device_get(grads)}),
                 stats=from_flax({"batch_stats": jax.device_get(stats)}),
                 query_sp=np.asarray(query_sp), net=net, metrics=metrics,
                 port_query_sp=captured["query_sp"].numpy(), samples=samples,
                 batch=batch, gt=gt, jgt=jax.device_get(jgt))
+
+
+@pytest.fixture(scope="module")
+def both():
+    return run_both([_sample(0, 0, 18), _sample(1, 2, 17)])  # ScanNet, MultiScan
 
 
 def test_train_collate_matches_jax(both):

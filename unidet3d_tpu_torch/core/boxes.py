@@ -64,3 +64,48 @@ def axis_aligned_overlaps_3d(
     vol2 = torch.prod(boxes2[..., 3:] - boxes2[..., :3], dim=-1)
     union = vol1 + vol2 - overlap
     return overlap / union.clamp(min=EPS)
+
+
+def rotation_matrix_z(angles: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotations around +z, row-vector convention ``p @ R`` with
+    R = [[c, s, 0], [-s, c, 0], [0, 0, 1]] (``rotate_points_z``'s)."""
+    c = torch.cos(angles)
+    s = torch.sin(angles)
+    zeros = torch.zeros_like(c)
+    ones = torch.ones_like(c)
+    return torch.stack(
+        [
+            torch.stack([c, s, zeros], dim=-1),
+            torch.stack([-s, c, zeros], dim=-1),
+            torch.stack([zeros, zeros, ones], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def box_corners_bev(boxes5: torch.Tensor) -> torch.Tensor:
+    """BEV corners (..., 4, 2) of rotated 2D boxes (..., 5) = (x, y, w, h,
+    alpha), counter-clockwise from (w, -h) / 2 in the box frame."""
+    x, y, w, h, alpha = boxes5.unbind(-1)
+    tx = torch.stack([w, w, -w, -w], dim=-1) * 0.5
+    ty = torch.stack([-h, h, h, -h], dim=-1) * 0.5
+    c = torch.cos(alpha)[..., None]
+    s = torch.sin(alpha)[..., None]
+    cx = tx * c - ty * s + x[..., None]
+    cy = tx * s + ty * c + y[..., None]
+    return torch.stack([cx, cy], dim=-1)
+
+
+# The eight corners of a box in units of its half size.
+_CORNER_SIGNS = (
+    (-1, -1, -1), (-1, -1, 1), (-1, 1, -1), (-1, 1, 1),
+    (1, -1, -1), (1, -1, 1), (1, 1, -1), (1, 1, 1),
+)
+
+
+def boxes7_corners(boxes: torch.Tensor) -> torch.Tensor:
+    """Eight 3D corners (..., 8, 3) of gravity-center boxes (..., 7)."""
+    signs = torch.tensor(_CORNER_SIGNS, dtype=boxes.dtype, device=boxes.device)
+    local = signs * (boxes[..., None, 3:6] / 2)
+    world = local @ rotation_matrix_z(boxes[..., 6])
+    return world + boxes[..., None, :3]

@@ -3,8 +3,9 @@ truth and host-built rulebooks, and the move to the device.
 
 The port of the JAX package's ``data/batcher.py::collate``: the same padding,
 subsampling, features and ground-truth fields, and the GridPack with its
-(V, 27) neighbor tables built by the numpy builder. Augmentations
-(``elastic_coords``) are not ported yet.
+(V, 27) neighbor tables built by the numpy builder. Every row dropped at a
+capacity is counted in ``data/telemetry.py::DROPS``, at the JAX collate's
+sites. Augmentations (``elastic_coords``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from ..core.config import ModelConfig
 from ..device import resolve_device
 from ..models.detector import GTBatch, PointBatch
 from ..ops.gridpack import GridPack, build_gridpack_numpy, quantize_points
+from .telemetry import DROPS
 
 
 def collate(
@@ -33,7 +35,8 @@ def collate(
     (n, n_superpoints) bool, "pts_instance_mask" (N,) instance ids. Scenes
     with more than cfg.max_points points are subsampled uniformly at random;
     superpoint ids beyond cfg.max_superpoints are folded into the last slot;
-    GTs beyond cfg.max_gts are dropped."""
+    GTs beyond cfg.max_gts are dropped; voxels beyond a level's capacity are
+    dropped by the pack builder. DROPS counts each."""
     rng = rng or np.random.RandomState(0)
     b = len(samples)
     p, s, g = cfg.max_points, cfg.max_superpoints, cfg.max_gts
@@ -56,6 +59,7 @@ def collate(
         n = min(len(pts), p)
         if len(pts) > p:
             sel = np.sort(rng.choice(len(pts), p, replace=False))
+            DROPS.add("points_dropped", len(pts) - p)
         else:
             sel = np.arange(n)
         points[i, :n] = pts[sel, :3]
@@ -70,10 +74,13 @@ def collate(
 
         sp = sm.get("sp_pts_mask")
         if sp is not None:
-            sp_ids[i, :n] = np.minimum(sp[sel], s - 1).astype(np.int32)
+            spc = sp[sel]
+            DROPS.add("superpoints_folded", int((spc >= s).sum()))
+            sp_ids[i, :n] = np.minimum(spc, s - 1).astype(np.int32)
 
         gb = sm.get("gt_bboxes_3d", np.zeros((0, 6), np.float32))
         gl = sm.get("gt_labels_3d", np.zeros((0,), np.int64))
+        DROPS.add("gts_dropped", len(gb) - g)
         ng = min(len(gb), g)
         if ng:
             boxes[i, :ng, : gb.shape[1]] = gb[:ng]
@@ -86,6 +93,7 @@ def collate(
         pim = sm.get("pts_instance_mask")
         if pim is not None:
             im = pim[sel].astype(np.int32)
+            DROPS.add("instances_dropped", int((im >= g).sum()))
             inst_ids[i, :n] = np.where(im >= g, -1, im)  # overflowed GTs dropped
 
     batch = PointBatch(
@@ -100,11 +108,17 @@ def collate(
         labels=labels, boxes=boxes, valid=gt_valid, sp_masks=sp_masks,
         inst_ids=inst_ids,
     )
+    caps = cfg.level_capacities(b)
     pack, _ = build_gridpack_numpy(
-        quantize_points(vox_src, valid),
-        valid.reshape(-1),
-        cfg.level_capacities(b),
+        quantize_points(vox_src, valid), valid.reshape(-1), caps
     )
+    # Valid points whose level-0 voxel was dropped, and valid voxels whose
+    # parent overflowed the next level.
+    DROPS.add("voxels_dropped",
+              int((pack.point_inverse[valid.reshape(-1)] >= caps[0]).sum()))
+    for lvl, par in enumerate(pack.parent):
+        DROPS.add("coarse_voxels_dropped",
+                  int((par[pack.valid[lvl]] >= caps[lvl + 1]).sum()))
     return batch, gt, pack
 
 

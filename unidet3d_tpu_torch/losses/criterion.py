@@ -1,9 +1,9 @@
 """Top-k cost matcher and multi-dataset detection criterion.
 
 The port of the JAX package's ``losses/criterion.py`` (``match_scene``,
-``layer_loss_scene``, ``criterion``) for the axis-aligned datasets. The JAX
-functions work on one scene and are vmapped; here they take a leading batch
-dim and match every scene on its own. The semantics are kept exactly:
+``layer_loss_scene``, ``criterion``). The JAX functions work on one scene and
+are vmapped; here they take a leading batch dim and match every scene on its
+own. The semantics are kept exactly:
 
   * costs 0.5 * (-softmax class score) + 2.0 * DIoU loss, without gradient,
     INF = 1e8 where the query's superpoint is outside the GT's mask, the
@@ -17,29 +17,36 @@ dim and match every scene on its own. The semantics are kept exactly:
     scene's matched pairs, scene-averaged over the scenes with pairs, summed
     over every decoder output set with per-layer re-matching.
 
-Rotated scenes (ARKitScenes) need the rotated DIoU, not ported yet: the
-criterion raises for them (ROADMAP.md Queue 1, item 3).
+Rotated scenes (ARKitScenes) take the rotated DIoU (``ops/rotated_iou.py``),
+the others the axis-aligned one. Which scenes are rotated is a host tuple of
+scene indices (``rotated_scenes``), so that only those scenes pay for the
+polygon clip in the matcher, as under the JAX package's per-scene
+``lax.cond``, and nothing is read back from the card to find them.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from ..core.boxes import boxes_to_corner_format
-from .iou_losses import axis_aligned_diou_loss
+from .iou_losses import axis_aligned_diou_loss, rotated_diou_3d_loss
 
 INF = 1e8
 MAXK = 6  # the largest per-dataset topk
+# Well-conditioned stand-ins for the rotated branch's inputs in non-rotated
+# scenes (see _sanitize_rot_inputs).
+_SAFE_BOX = (0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 0.0)
+_SAFE_BOX2 = (0.3, 0.2, 0.1, 1.0, 1.0, 1.0, 0.4)
 
 
 class SceneGT(NamedTuple):
     """Padded ground truth of a batch of scenes.
 
-    labels: (B, G) int in [0, NC); boxes: (B, G, 7) gravity-center, yaw 0;
-    valid: (B, G) bool; query_masks: (B, G, Q) bool, the query may match the
-    GT."""
+    labels: (B, G) int in [0, NC); boxes: (B, G, 7) gravity-center, yaw 0
+    unless the scene is rotated; valid: (B, G) bool; query_masks: (B, G, Q)
+    bool, the query may match the GT."""
 
     labels: torch.Tensor
     boxes: torch.Tensor
@@ -55,21 +62,83 @@ class MatchResult(NamedTuple):
 
 
 def _diou_of_boxes(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """DIoU loss of center-size boxes (..., >= 6)."""
+    """Axis-aligned DIoU loss of center-size boxes (..., >= 6)."""
     return axis_aligned_diou_loss(
         boxes_to_corner_format(pred[..., :6]), boxes_to_corner_format(target[..., :6])
     )
 
 
+def _box_like(values, like: torch.Tensor) -> torch.Tensor:
+    """A (7,) box on `like`'s device and dtype, written by fills: a copy from
+    the host would wait for the card."""
+    out = like.new_empty(len(values))
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
+
+
+def _sanitize_rot_inputs(pred, tgt, rotated):
+    """Replace the rotated branch's inputs (..., 7) with well-conditioned
+    stand-ins where `rotated` (broadcast against pred[..., 0]) is False, so
+    that its unselected backward stays NaN-free: the double-where guard,
+    which torch.where needs as jnp.where does."""
+    r = rotated[..., None]
+    p = torch.where(r, pred, _box_like(_SAFE_BOX, pred))
+    t = torch.where(r, tgt, _box_like(_SAFE_BOX2, tgt))
+    return p, t
+
+
 @torch.no_grad()
-def pairwise_bbox_cost(boxes_q: torch.Tensor, boxes_g: torch.Tensor) -> torch.Tensor:
-    """(B, Q, 7) x (B, G, 7) -> (B, Q, G) DIoU matching costs."""
-    b, q, _ = boxes_q.shape
-    g = boxes_g.shape[1]
-    return _diou_of_boxes(
-        boxes_q[:, :, None, :6].expand(b, q, g, 6),
-        boxes_g[:, None, :, :6].expand(b, q, g, 6),
+def rotated_costs(boxes_q: torch.Tensor, boxes_g: torch.Tensor,
+                  chunk: int = 128) -> torch.Tensor:
+    """(..., Q, 7) x (..., G, 7) -> (..., Q, G) rotated DIoU losses, chunked
+    over the queries as in the JAX package: whole, the 24-candidate clip's
+    temporaries are (..., Q, G, 24, 2) several times over."""
+    q = boxes_q.shape[-2]
+    bg = boxes_g[..., None, :, :]
+    return torch.cat(
+        [rotated_diou_3d_loss(boxes_q[..., q0:q0 + chunk, None, :], bg)
+         for q0 in range(0, q, chunk)],
+        dim=-2,
     )
+
+
+@torch.no_grad()
+def pairwise_costs_batch(boxes_q: torch.Tensor, boxes_g: torch.Tensor,
+                         rotated_scenes: Sequence[int] = (),
+                         chunk: int = 128) -> torch.Tensor:
+    """(..., B, Q, 7) x (B, G, 7) -> (..., B, Q, G) DIoU matching costs.
+
+    The axis-aligned costs of every scene, then the rotated ones, chunked
+    over the queries, of the scenes in `rotated_scenes` (host ints) only:
+    the clip is the dearest part of the loss, and a scene that is not
+    rotated does not pay for it. A leading dim (the decoder's output sets)
+    is taken in the same passes."""
+    q, g = boxes_q.shape[-2], boxes_g.shape[-2]
+    lead = boxes_q.shape[:-2]
+    cost = _diou_of_boxes(
+        boxes_q[..., :, None, :6].expand(*lead, q, g, 6),
+        boxes_g[:, None, :, :6].expand(*lead, q, g, 6),
+    )
+    if rotated_scenes:
+        bq = torch.stack([boxes_q[..., i, :, :] for i in rotated_scenes], dim=-3)
+        bg = torch.stack([boxes_g[i] for i in rotated_scenes])
+        rot = rotated_costs(bq, bg, chunk)
+        for r, i in enumerate(rotated_scenes):
+            cost[..., i, :, :] = rot[..., r, :, :]
+    return cost
+
+
+def _elementwise_bbox_loss(pred, tgt, rotated, rotated_scenes):
+    """One-to-one DIoU loss (B, N) of boxes (B, N, 7): rotated where the
+    scene's flag `rotated` (B,) is set. The rotated branch runs only if the
+    batch has a rotated scene."""
+    aa = _diou_of_boxes(pred, tgt)
+    if not rotated_scenes:
+        return aa
+    r = rotated[:, None]
+    rp, rt = _sanitize_rot_inputs(pred, tgt, r)
+    return torch.where(r, rotated_diou_3d_loss(rp, rt), aa)
 
 
 @torch.no_grad()
@@ -82,6 +151,7 @@ def match_scene(
     cls_weight: float = 0.5,
     bbox_weight: float = 2.0,
     bbox_cost: torch.Tensor | None = None,  # (B, Q, G) precomputed
+    rotated_scenes: Sequence[int] = (),  # host ints: the rotated scenes
 ) -> MatchResult:
     """The reference's top-k matcher on padded tensors, per scene."""
     b, q_cap, ncp1 = cls_logits.shape
@@ -91,7 +161,7 @@ def match_scene(
     labels = gt.labels.long().clamp(0, nc_max)
     cls_cost = -torch.gather(scores, 2, labels[:, None, :].expand(b, q_cap, g_cap))
     if bbox_cost is None:
-        bbox_cost = pairwise_bbox_cost(boxes, gt.boxes)
+        bbox_cost = pairwise_costs_batch(boxes, gt.boxes, rotated_scenes)
     cost = cls_weight * cls_cost + bbox_weight * bbox_cost
     allowed = (
         gt.query_masks.transpose(1, 2) & query_valid[:, :, None] & gt.valid[:, None, :]
@@ -130,11 +200,14 @@ def layer_loss_scene(
     topk: torch.Tensor,  # (B,)
     non_object_weight: float,
     bbox_cost: torch.Tensor | None = None,
+    rotated: torch.Tensor | None = None,  # (B,) bool, needed with rotated_scenes
+    rotated_scenes: Sequence[int] = (),  # host ints: the scenes rotated marks
 ):
     """One decoder layer -> per scene (cls_loss, bbox_loss_sum, n_pairs)."""
     b = cls_logits.shape[0]
     nc_max = cls_logits.shape[-1] - 1
-    m = match_scene(cls_logits, boxes, query_valid, gt, topk, bbox_cost=bbox_cost)
+    m = match_scene(cls_logits, boxes, query_valid, gt, topk, bbox_cost=bbox_cost,
+                    rotated_scenes=rotated_scenes)
 
     logp = F.log_softmax(cls_logits, dim=-1)
     nll = -torch.gather(logp, 2, m.cls_target[..., None])[..., 0]
@@ -145,7 +218,7 @@ def layer_loss_scene(
     flat_q = m.pair_q.reshape(b, -1)  # (B, G*MAXK), GT-major
     pred = torch.gather(boxes, 1, flat_q[..., None].expand(-1, -1, boxes.shape[-1]))
     tgt = gt.boxes.repeat_interleave(MAXK, dim=1)
-    pair_loss = _diou_of_boxes(pred, tgt)
+    pair_loss = _elementwise_bbox_loss(pred, tgt, rotated, rotated_scenes)
     pv = m.pair_valid.reshape(b, -1)
     bbox_sum = torch.where(pv, pair_loss, 0.0).sum(-1)
     return cls_loss, bbox_sum, pv.sum(-1)
@@ -161,19 +234,25 @@ def criterion(
     dataset_weights: torch.Tensor,  # (B,)
     loss_weight=(0.5, 1.0),
     non_object_weight: float = 0.1,
+    rotated_scenes: Sequence[int] | None = None,
 ) -> torch.Tensor:
-    """Total detection loss over all decoder output sets (one card)."""
-    if bool(rotated.any()):
-        raise NotImplementedError(
-            "rotated scenes need the rotated DIoU loss and matcher costs "
-            "(ops/rotated_iou.py), not ported yet: ROADMAP.md Queue 1, item 3"
-        )
+    """Total detection loss over all decoder output sets (one card).
+
+    `rotated_scenes` are the indices of the scenes `rotated` marks, as host
+    ints (``detection_loss`` takes them from the collated dataset ids).
+    Given, the criterion reads nothing back from the card; left None, it
+    reads `rotated` (a wait for the card when it lies there)."""
+    if rotated_scenes is None:
+        rotated_scenes = [i for i, r in enumerate(rotated.tolist()) if r]
+    rotated_scenes = tuple(rotated_scenes)
+    # The matcher's box costs of every output set in one pass: they carry no
+    # gradient and do not depend on an earlier set's matching.
+    costs = pairwise_costs_batch(boxes, gt.boxes, rotated_scenes)
     total = cls_logits.new_zeros(())
     for layer in range(cls_logits.shape[0]):
-        costs = pairwise_bbox_cost(boxes[layer], gt.boxes)
         cls_l, bbox_sum, n_pairs = layer_loss_scene(
             cls_logits[layer], boxes[layer], query_valid, gt, topk,
-            non_object_weight, costs,
+            non_object_weight, costs[layer], rotated, rotated_scenes,
         )
         cls_loss = (dataset_weights * cls_l).mean()
         # Scene mean over the scenes that have matched pairs.

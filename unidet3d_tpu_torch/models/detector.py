@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -269,25 +270,43 @@ def prepare_gt(cfg: ModelConfig, batch: PointBatch, gt: GTBatch,
                    query_masks=query_masks)
 
 
-def detection_loss(cfg: ModelConfig, out: DecoderOutput, aux: ForwardAux,
-                   batch: PointBatch, gt: GTBatch) -> torch.Tensor:
-    """The training loss: prepare_gt, then the criterion over all decoder
-    output sets."""
-    scene_gt = prepare_gt(cfg, batch, gt, aux)
-    ds = batch.dataset_ids.long()
-    dev = ds.device
+def rotated_scenes_of(cfg: ModelConfig, dataset_ids) -> tuple:
+    """The indices of the scenes of rotated datasets, from host dataset ids
+    (B,) (the collated batch's numpy array)."""
+    return tuple(i for i, d in enumerate(np.asarray(dataset_ids).tolist())
+                 if cfg.angles[d])
+
+
+def scene_flags(cfg: ModelConfig, dataset_ids: torch.Tensor):
+    """The criterion's per-scene (B,) tensors on dataset_ids' device:
+    rotated (bool), topk (int) and dataset weight (float32)."""
+    ds = dataset_ids.long()
 
     def per_scene(values, dtype=None):
-        return torch.as_tensor(values, dtype=dtype, device=dev)[ds]
+        return torch.as_tensor(values, dtype=dtype, device=ds.device)[ds]
 
+    return (per_scene(cfg.angles), per_scene(cfg.topk),
+            per_scene(cfg.datasets_weights, torch.float32))
+
+
+def detection_loss(cfg: ModelConfig, out: DecoderOutput, aux: ForwardAux,
+                   batch: PointBatch, gt: GTBatch,
+                   host_dataset_ids=None) -> torch.Tensor:
+    """The training loss: prepare_gt, then the criterion over all decoder
+    output sets.
+
+    host_dataset_ids: the batch's (B,) dataset ids held on the host (the
+        collated numpy array). With them the criterion knows its rotated
+        scenes without reading the card; without, it reads them from
+        batch.dataset_ids."""
     return criterion(
         out.cls_logits,
         out.boxes,
         aux.query_valid,
-        scene_gt,
-        per_scene(cfg.angles),
-        per_scene(cfg.topk),
-        per_scene(cfg.datasets_weights, torch.float32),
+        prepare_gt(cfg, batch, gt, aux),
+        *scene_flags(cfg, batch.dataset_ids),
         loss_weight=cfg.loss_weight,
         non_object_weight=cfg.non_object_weight,
+        rotated_scenes=(None if host_dataset_ids is None
+                        else rotated_scenes_of(cfg, host_dataset_ids)),
     )

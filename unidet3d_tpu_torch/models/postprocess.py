@@ -1,9 +1,10 @@
 """Inference post-processing: top-k selection, class-wise NMS, superpoint
 box trimming.
 
-The port of the JAX package's ``models/postprocess.py`` for the
-non-rotated datasets. Predictions are fixed-size (topk_insts,) arrays with a
-validity mask; the dataset index is a host int per scene group.
+The port of the JAX package's ``models/postprocess.py``. Predictions are
+fixed-size (topk_insts,) arrays with a validity mask; the dataset index is a
+host int per scene group, which picks the rotated (ARKitScenes) or the
+axis-aligned NMS and whether boxes are trimmed by superpoints.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from ..core.boxes import get_face_distances
 from ..core.config import ModelConfig
-from ..ops.nms import greedy_nms, pairwise_iou_aa
+from ..ops.nms import greedy_nms, pairwise_iou_aa, pairwise_iou_rotated
 from ..ops.segment import segment_mean
 
 
@@ -89,21 +90,17 @@ def predict_scene(
     sp_ids: torch.Tensor,
 ) -> SceneDetections:
     """Full single-scene post-processing."""
-    if cfg.angles[dataset_idx]:
-        raise NotImplementedError(
-            f"dataset {cfg.datasets[dataset_idx]!r} needs rotated-box NMS "
-            "(ops/rotated_iou.py), not ported yet: ROADMAP.md Queue 1, item 3"
-        )
+    rotated = cfg.angles[dataset_idx]
     sel_boxes, labels, scores = select_topk_instances(
         cls_logits, boxes, query_valid, cfg.topk_insts
     )
     valid = scores > cfg.score_thr
-    keep = greedy_nms(
-        pairwise_iou_aa(sel_boxes), scores, labels, valid,
-        cfg.iou_thr[dataset_idx],
-    )
-    out_boxes = sel_boxes.clone()
-    out_boxes[:, 6] = 0.0
+    iou = pairwise_iou_rotated(sel_boxes) if rotated else pairwise_iou_aa(sel_boxes)
+    keep = greedy_nms(iou, scores, labels, valid, cfg.iou_thr[dataset_idx])
+    out_boxes = sel_boxes
+    if not rotated:
+        out_boxes = sel_boxes.clone()
+        out_boxes[:, 6] = 0.0
     if cfg.use_superpoints[dataset_idx]:
         out_boxes, keep = trim_boxes_by_superpoints(
             cfg, out_boxes, keep, points, point_valid, sp_ids

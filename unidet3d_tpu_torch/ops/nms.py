@@ -1,21 +1,31 @@
-"""Class-wise greedy 3D NMS for axis-aligned boxes.
+"""Class-wise greedy 3D NMS.
 
-The port of the JAX package's ``ops/nms.py`` (``pairwise_iou_aa`` and
-``greedy_nms``): a pairwise IoU matrix, then greedy suppression over
-score-sorted boxes restricted to same-class pairs. Rotated NMS (ARKitScenes)
-is not ported yet.
+The port of the JAX package's ``ops/nms.py``: a pairwise IoU matrix
+(axis-aligned, ``pairwise_iou_aa``, or rotated, ``pairwise_iou_rotated``,
+ARKitScenes), then greedy suppression over score-sorted boxes restricted to
+same-class pairs (``greedy_nms``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.boxes import axis_aligned_overlaps_3d, boxes_to_corner_format
+from .rotated_iou import rotated_iou_3d
 
 
 def pairwise_iou_aa(boxes: torch.Tensor) -> torch.Tensor:
     """(N, >=6) center-size boxes -> (N, N) axis-aligned IoU (yaw ignored)."""
     corners = boxes_to_corner_format(boxes[:, :6])
     return axis_aligned_overlaps_3d(corners, corners)
+
+
+def pairwise_iou_rotated(boxes: torch.Tensor, chunk: int = 128) -> torch.Tensor:
+    """(N, 7) boxes -> (N, N) rotated 3D IoU, `chunk` rows at a time to bound
+    the clip's temporaries."""
+    return torch.cat(
+        [rotated_iou_3d(boxes[r0:r0 + chunk, None, :], boxes[None, :, :])
+         for r0 in range(0, boxes.shape[0], chunk)]
+    )
 
 
 def greedy_nms(
