@@ -28,7 +28,8 @@ Phases (any failure raises and the script exits non-zero):
      and shared memory;
   5. the whole eval forward on the card (through K1 and K3) against the same
      forward on the CPU (plain versions), fp32, one 16k-point scene;
-  6. the production eval path at full width, bf16: collate -> to_device ->
+  6. the production eval path at full width, bf16: collate (native
+     rulebooks) -> to_device ->
      forward -> predict_batch on the 4 scenes, with the kernel launches of
      one run counted (37 K1 and 6 K3 per forward, no probe) and the warm
      group time, then one group under torch.profiler (device time by kernel,
@@ -71,7 +72,35 @@ Phases (any failure raises and the script exits non-zero):
  14. [train-rot]: phase 13 on 3 ScanNet, 3 MultiScan and 2 ARKitScenes
      scenes (GT boxes with yaw) for 4 steps, with the card time of the
      rotated matcher costs of one step, and them under the profiler;
- 15. the whole script's wall time, the `kernels` JSON line (per training
+ 15. [native-pack]: the native rulebook builder (native/rulebook.cc, built
+     by g++) against the numpy builder on the eval group of phase 6 and the
+     training batch of phase 13: every table, row and n_valid equal, and
+     each builder's seconds (native on one thread and on every core);
+ 16. [loader-train]: on-disk datasets in the reference's info format (8
+     ScanNet scenes with raw nyu40 semantic ids, 4 MultiScan, 4 ARKitScenes
+     with yawed boxes; 131,072 points each, written to a temporary
+     directory and removed at the end) -> TrainLoader over their
+     ConcatDataset with augmentation on (elastic distortion for ScanNet),
+     batch 8 at the full config, the batches staged on the card by the
+     loader's workers (pinned buffers, a side stream) -> 10 steps of
+     make_train_step: launches of every step (37/36/37/6/6/6), finite
+     losses, step time with the wait excluded, the consumer's wait in
+     next(loader), the sustained scenes/s over steps 3-10 with the waits,
+     the workers' seconds per batch (pipeline, collate, pack, staging), and
+     one staged batch bit-equal to a synchronous to_device of its arrays;
+     the same 10 batches again with 2 and 8 workers, and once more with no
+     loader running (synchronous to_device in each step);
+ 17. [eval-loop]: evaluate() at the full config over on-disk validation sets
+     (12 ScanNet scenes of 48k-131k points, 8 ARKitScenes scenes through
+     the test pipeline's 100k-point cap), groups of 4, random weights:
+     scenes/s, ms per group, the loop's wait per group and the buckets per
+     dataset, 37 K1 and 6 K3 launches per group's forward, the mAP dict,
+     and the oracle (each scene's ground truth as its detections: AP 1.0
+     for every class with ground truth);
+ 18. [eval-loop-small]: evaluate() at a small fp32 config on 4 small 3RScan
+     scenes on the card and on the CPU from the same weights: keep masks
+     (as [map]), equal mAP dicts, the oracle;
+ 19. the whole script's wall time, the `kernels` JSON line (per training
      step of phase 13; the probe's modes per probe call), the card's name
      and power limit, and the final JSON line.
 Times are CUDA-event means (the conv kernels per shape: the median of 5 such
@@ -79,9 +108,13 @@ means) or synchronised host-clock medians on the card in this run.
 """
 from __future__ import annotations
 
+import functools
 import json
+import logging
+import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -90,8 +123,22 @@ import torch.nn.functional as F
 
 from unidet3d_tpu_torch.core.class_table import build_class_table
 from unidet3d_tpu_torch.core.config import DATASETS_CLASSES, default_config
-from unidet3d_tpu_torch.data.batcher import collate, gt_to_device, to_device
-from unidet3d_tpu_torch.data.synthetic import stripe_superpoints, synthetic_scene
+from unidet3d_tpu_torch.core.experiment import DatasetSpec, ExperimentConfig
+from unidet3d_tpu_torch.data.batcher import (
+    build_packs,
+    collate,
+    gt_to_device,
+    map_arrays,
+    to_device,
+)
+from unidet3d_tpu_torch.data.dataset_specs import DEFAULT_LABEL_MAPPINGS, SCANNET_DET_CAT_IDS
+from unidet3d_tpu_torch.data.datasets import ConcatDataset
+from unidet3d_tpu_torch.data.loader import TrainLoader
+from unidet3d_tpu_torch.data.synthetic import (
+    stripe_superpoints,
+    synthetic_scene,
+    write_info_dataset,
+)
 from unidet3d_tpu_torch.device import card_line, cuda_ms, sm_clock_hz
 from unidet3d_tpu_torch.losses.criterion import criterion, match_scene, rotated_costs
 from unidet3d_tpu_torch.models.detector import (
@@ -111,6 +158,7 @@ from unidet3d_tpu_torch.ops.attention import (
     flash_attention_dkv_cuda,
     flash_attention_dq_cuda,
 )
+from unidet3d_tpu_torch.ops.gridpack import build_gridpack_host, build_gridpack_numpy
 from unidet3d_tpu_torch.ops.nms import pairwise_iou_aa, pairwise_iou_rotated
 from unidet3d_tpu_torch.ops.probe_conv import MODES as PROBE_MODES
 from unidet3d_tpu_torch.ops.probe_conv import probe_conv_cuda
@@ -125,6 +173,7 @@ from unidet3d_tpu_torch.ops.subm_conv_cuda import (
 )
 from unidet3d_tpu_torch.parallel.train_step import make_train_step
 from unidet3d_tpu_torch.tools.probe_conv_bottleneck import measure, probe_inputs, run_modes
+from unidet3d_tpu_torch.train.loop import build_datasets, evaluate
 from unidet3d_tpu_torch.train.metric import IndoorMetric
 from unidet3d_tpu_torch.train.optim import make_optimizer
 from unidet3d_tpu_torch.weights import seeded_init_
@@ -576,7 +625,7 @@ def phase_production(samples, table, card, dataset_idx=0, tag="prod", reps=3):
     n_sp = int(aux.query_valid.sum().item())
     print(f"[{tag}] {GROUP} scenes x {SCENE_POINTS} pts (dataset {cfg.datasets[dataset_idx]}), "
           f"voxels/level {list(pack.n_valid)}, {n_sp} valid queries | {card}")
-    print(f"[{tag}] host pack (numpy rulebooks) {pack_s:.2f} s | {card}")
+    print(f"[{tag}] host pack (native rulebooks) {pack_s:.2f} s | {card}")
     print(f"[{tag}] warm median group {g:.1f} ms over {reps} runs "
           f"({GROUP / (g / 1e3):.2f} scenes/s): H2D {statistics.median(h2d):.1f} ms, "
           f"forward {statistics.median(fwd):.1f} ms, post-processing "
@@ -968,7 +1017,7 @@ def phase_train(batch, gt, pack, pack_s, table, card, tag="train", steps=TRAIN_S
     med = statistics.median
     warm = med(step_ms[1:])
     n = len(host_ids)
-    print(f"[{tag}] host pack (numpy rulebooks) {pack_s:.2f} s for {n} scenes | {card}")
+    print(f"[{tag}] host pack (native rulebooks) {pack_s:.2f} s for {n} scenes | {card}")
     print(f"[{tag}] warm median step {warm:.1f} ms over steps 2-{steps} "
           f"({n / (warm / 1e3):.2f} scenes/s), peak {peak:.1f} GiB | {card}")
     print(f"[{tag}] split (median of {split_reps} synchronised steps): H2D {med(h2d):.1f} ms, "
@@ -982,6 +1031,421 @@ def phase_train(batch, gt, pack, pack_s, table, card, tag="train", steps=TRAIN_S
 
     phase_profile(run, card, f"one training step ({tag})", top=16)
     return launches
+
+# [native-pack], [loader-train], [eval-loop] and [eval-loop-small].
+LOADER_TRAIN_SCENES = {0: 8, 2: 4, ARKIT: 4}  # on disk: ScanNet, MultiScan, ARKitScenes
+LOADER_TRAIN_STEPS = 10
+SUSTAINED_FROM = 3  # [loader-train]'s sustained rate: steps 3-10, waits included
+# [loader-train]'s runs: TrainLoader's default workers (half the cores), then
+# 2 and 8 (the JAX loader's default on an 8-core host) on the same batches.
+LOADER_WORKERS = (None, 2, 8)
+EVAL_SCANNET_POINTS = tuple(int(n) for n in np.linspace(48000, SCENE_POINTS, 12))
+EVAL_ARKIT_SCENES = 8
+EVAL_BATCH = 4
+SMALL_EVAL_POINTS = (8192, 7000, 6000, 5000)  # [eval-loop-small]: 3RScan scenes
+RSCAN = 3
+
+
+def packs_equal(mine, ref) -> bool:
+    """Every array of two GridPacks, every row, and n_valid."""
+    return mine.n_valid == ref.n_valid and all(
+        a.dtype == b.dtype and np.array_equal(a, b)
+        for name in ("valid", "neighbors", "parent", "offset_code")
+        for a, b in zip(getattr(mine, name), getattr(ref, name))
+    ) and np.array_equal(mine.point_inverse, ref.point_inverse)
+
+
+def phase_native_pack(groups, card):
+    """The native rulebook builder against the numpy builder on collated
+    groups ([(tag, samples)]): every table equal on every row, and each
+    builder's seconds (native on one thread and on all cores)."""
+    cfg = default_config()
+    cores = os.cpu_count()
+    for tag, samples in groups:
+        batch, _, _ = collate(samples, cfg, build_rulebooks=False)
+        secs = {}
+        for name, builder in (
+                ("numpy", build_gridpack_numpy),
+                ("native, 1 thread", functools.partial(build_gridpack_host, num_threads=1)),
+                (f"native, {cores} threads",
+                 functools.partial(build_gridpack_host, num_threads=cores))):
+            t0 = time.perf_counter()
+            pack = build_packs(batch.vox_src, batch.valid, cfg, builder)
+            secs[name] = time.perf_counter() - t0
+            if name == "numpy":
+                ref = pack
+            else:
+                assert packs_equal(pack, ref), f"[native-pack] {tag}: {name} != numpy"
+        print(f"[native-pack] {tag} ({len(samples)} scenes, voxels/level {list(ref.n_valid)}): "
+              f"native tables equal to numpy's on every array, row and n_valid; seconds "
+              + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+              + f" (os.cpu_count() {cores}) | {card}")
+
+
+def info_scene(ds, name, n_points, seed):
+    """One synthetic scene of dataset `ds` as its infos store it
+    (data/synthetic.py::write_info_dataset): colors raw (ARKitScenes in
+    [0, 1], the rest in [0, 255]), stripe superpoints, instances of
+    SP_PER_GT stripes (N_GTS, fewer in a small scene) with their point
+    bounds as boxes and raw labels: ScanNet's nyu40 ids in the semantic
+    mask (so that its class mappings keep every instance), MultiScan's and
+    3RScan's raw ids (their label mappings keep them), ARKitScenes' boxes
+    with a yaw each."""
+    rng = np.random.RandomState(seed)
+    pts = synthetic_scene(n_points, seed=seed)
+    sp = stripe_superpoints(pts, SP_SIZE)
+    n_sp = int(sp.max()) + 1
+    n_gts = min(N_GTS, n_sp // SP_PER_GT - 1)
+    inst_of_sp = np.full(n_sp, -1)
+    inst_of_sp[: n_gts * SP_PER_GT] = np.arange(n_gts * SP_PER_GT) // SP_PER_GT
+    inst = inst_of_sp[sp]
+    lo = np.stack([pts[inst == k, :3].min(0) for k in range(n_gts)])
+    hi = np.stack([pts[inst == k, :3].max(0) for k in range(n_gts)])
+    boxes = np.concatenate([(lo + hi) / 2, hi - lo], 1).astype(np.float32)
+    labels = rng.randint(0, len(DATASETS_CLASSES[ds]), n_gts)
+    raw = pts.copy()
+    raw[:, 3:] = (pts[:, 3:] + 1) * (0.5 if ds == ARKIT else 127.5)
+    scene = dict(name=name, points=raw, super_points=sp, boxes=boxes, labels=labels)
+    if ds == 0:
+        det_ids = np.asarray(SCANNET_DET_CAT_IDS)
+        sem = np.where(inst >= 0, det_ids[labels[np.maximum(inst, 0)]],
+                       rng.randint(1, 3, len(pts)))  # wall / floor
+        scene.update(instance_mask=inst, semantic_mask=sem, axis_align_matrix=np.eye(4))
+    elif ds in (2, RSCAN):
+        raw_id = {i: c for c, i in DEFAULT_LABEL_MAPPINGS[cfg_name(ds)].items()}
+        scene.update(instance_mask=inst, labels=np.asarray([raw_id[i] for i in labels]))
+    else:
+        yaw = rng.uniform(-np.pi, np.pi, (n_gts, 1)).astype(np.float32)
+        scene.update(boxes=np.concatenate([boxes, yaw], 1))
+    return scene
+
+
+def cfg_name(ds) -> str:
+    return default_config().datasets[ds]
+
+
+def write_datasets(root, split, sizes: dict, seed0) -> dict:
+    """{dataset index: data root} of on-disk datasets under `root`, each
+    with the info file infos_<split>.pkl; sizes: {dataset index: [points
+    per scene]}."""
+    roots = {}
+    for ds, points in sizes.items():
+        name = cfg_name(ds)
+        roots[ds] = os.path.join(root, name)
+        write_info_dataset(roots[ds], [
+            info_scene(ds, f"{split}{i:03d}", n, seed0 + 100 * ds + i)
+            for i, n in enumerate(points)], ann_file=f"infos_{split}.pkl")
+    return roots
+
+
+def experiment(cfg, roots, split) -> ExperimentConfig:
+    ann = {f"ann_{split}": f"infos_{split}.pkl"}
+    return ExperimentConfig(
+        model=cfg, batch_size=TRAIN_BATCH, eval_batch_size=EVAL_BATCH,
+        datasets=tuple(DatasetSpec(cfg_name(ds), root, **ann)
+                       for ds, root in roots.items()))
+
+
+def tree_arrays(*trees) -> list:
+    """Every array of PointBatch / GTBatch / GridPack trees, in order."""
+    out = []
+    for tree in trees:
+        map_arrays(out.append, tree)
+    return out
+
+
+WORKER_PARTS = ("pipeline", "collate", "pack", "stage")
+
+
+def worker_line(times) -> str:
+    """Median and max seconds per batch of each worker part, then each
+    worker's mean seconds per batch by part."""
+    overall = ", ".join(
+        f"{p} {statistics.median(getattr(t, p) for t in times):.3f} / "
+        f"{max(getattr(t, p) for t in times):.3f}" for p in WORKER_PARTS)
+    per_worker = []
+    for thread in sorted({t.thread for t in times}):
+        mine = [t for t in times if t.thread == thread]
+        per_worker.append(f"{thread} ({len(mine)}) " + "/".join(
+            f"{statistics.mean(getattr(t, p) for t in mine):.2f}" for p in WORKER_PARTS))
+    return (f"{overall}; per worker (batches) mean s pipeline/collate/pack/stage: "
+            + ", ".join(per_worker))
+
+
+def loader_steps(exp, table, workers, check_staged):
+    """LOADER_TRAIN_STEPS training steps fed by a TrainLoader of `workers`
+    threads (None: its default) from fresh weights (seed 0), the launches
+    of each step counted. Returns the run's numbers and its batches' host
+    arrays; with check_staged, one staged batch is held bit for bit against
+    a synchronous to_device of its arrays after its step."""
+    cfg = exp.model
+    net = seeded_init_(UniDet3D(cfg, table, device="cuda"), 0)
+    step = make_train_step(net, cfg, make_optimizer(net.parameters()))
+    loader = TrainLoader(ConcatDataset(build_datasets(exp, "train")), cfg, exp.batch_size,
+                         seed=exp.seed, num_threads=workers)
+    run = dict(waits=[], step_ms=[], losses=[], mix=[], hosts=[], staged=0,
+               workers=len(loader._threads))
+    try:
+        for i in range(LOADER_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            if i + 1 == SUSTAINED_FROM:
+                t_sustained = t0
+            tb = next(loader)
+            t1 = time.perf_counter()
+            reset_counts()
+            metrics = step(tb.batch, tb.gt, tb.pack, torch.Generator().manual_seed(i),
+                           host_dataset_ids=tb.host[0].dataset_ids)
+            run["losses"].append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = read_counts()
+            assert launches == TRAIN_LAUNCHES, ("loader-train", i, launches)
+            run["waits"].append((t1 - t0) * 1e3)
+            run["step_ms"].append((t2 - t1) * 1e3)
+            run["mix"].append(tb.host[0].dataset_ids.tolist())
+            run["hosts"].append(tb.host)
+            if check_staged and i == LOADER_TRAIN_STEPS // 2:  # after its step
+                b, p = to_device(tb.host[0], tb.host[2], "cuda")
+                sync = tree_arrays(b, gt_to_device(tb.host[1], "cuda"), p)
+                staged = tree_arrays(tb.batch, tb.gt, tb.pack)
+                assert len(sync) == len(staged) and all(
+                    torch.equal(x, y) for x, y in zip(staged, sync)), "staged != to_device"
+                assert tb.pack.n_valid == tb.host[2].n_valid
+                run["staged"] = len(staged)
+        run["wall"] = time.perf_counter() - t_sustained
+    finally:
+        loader.close()
+    assert all(np.isfinite(run["losses"])), run["losses"]
+    run["times"], run["launches"] = list(loader.times), launches
+    return run
+
+
+def phase_loader_train(table, card, root):
+    """The production training step fed by TrainLoader from on-disk
+    datasets (ScanNet with elastic distortion, MultiScan, ARKitScenes;
+    augmentation on), batch 8 at the full config, the batches staged on the
+    card by the loader's workers: LOADER_TRAIN_STEPS steps with their
+    launches counted, the consumer's wait in next(loader), the sustained
+    rate from step SUSTAINED_FROM on (waits included), the workers' seconds
+    per batch, and one staged batch held bit for bit against a synchronous
+    to_device of its arrays; the same with each other count of workers in
+    LOADER_WORKERS (the same batches: they depend on the seed alone). Then
+    the same batches
+    from the same weights without the loader: each step with a synchronous
+    to_device and no worker threads running, which shows what the loader's
+    threads cost the step and what the staged copy saved it."""
+    sizes = {ds: [SCENE_POINTS] * n for ds, n in LOADER_TRAIN_SCENES.items()}
+    exp = experiment(default_config(), write_datasets(root, "train", sizes, 0), "train")
+    cfg = exp.model
+    runs = [loader_steps(exp, table, workers, i == 0)
+            for i, workers in enumerate(LOADER_WORKERS)]
+    assert all(run["mix"] == runs[0]["mix"] for run in runs)
+    net = seeded_init_(UniDet3D(cfg, table, device="cuda"), 0)
+    step = make_train_step(net, cfg, make_optimizer(net.parameters()))
+    replay_ms, replay_losses = [], []
+    for i, (batch, gt, pack) in enumerate(runs[0]["hosts"]):  # no loader threads now
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b, p = to_device(batch, pack, "cuda")
+        metrics = step(b, gt_to_device(gt, "cuda"), p, torch.Generator().manual_seed(i),
+                       host_dataset_ids=batch.dataset_ids)
+        replay_losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+    for run in runs:
+        del run["hosts"]
+    n_sustained = LOADER_TRAIN_STEPS - SUSTAINED_FROM + 1
+    print(f"[loader-train] {LOADER_TRAIN_STEPS} steps, batch {exp.batch_size} x {SCENE_POINTS} "
+          f"pts from disk (ScanNet {LOADER_TRAIN_SCENES[0]}, MultiScan {LOADER_TRAIN_SCENES[2]}, "
+          f"ARKitScenes {LOADER_TRAIN_SCENES[ARKIT]} scenes; augmentation on), datasets per "
+          f"batch {runs[0]['mix']} | {card}")
+    print(f"[loader-train] launches per step (every step): "
+          + ", ".join(f"{k} {v}" for k, v in runs[0]["launches"].items()) + f" | {card}")
+    for run in runs:
+        tag = f"[loader-train] {run['workers']} workers (os.cpu_count() {os.cpu_count()}):"
+        print(f"{tag} losses {[round(x, 4) for x in run['losses']]}; step ms (wait "
+              f"excluded) {[round(x, 1) for x in run['step_ms']]}; wait ms "
+              f"{[round(x, 1) for x in run['waits']]} | {card}")
+        print(f"{tag} warm median step {statistics.median(run['step_ms'][1:]):.1f} ms over "
+              f"steps 2-{LOADER_TRAIN_STEPS} (wait excluded); sustained "
+              f"{n_sustained * exp.batch_size / run['wall']:.2f} scenes/s over steps "
+              f"{SUSTAINED_FROM}-{LOADER_TRAIN_STEPS} (wall {run['wall']:.2f} s, waits "
+              f"included); consumer wait in next(loader): first {run['waits'][0]:.1f} ms, "
+              f"then median {statistics.median(run['waits'][1:]):.1f} ms, max "
+              f"{max(run['waits'][1:]):.1f} ms | {card}")
+        print(f"{tag} seconds per batch (median / max over {len(run['times'])} batches "
+              f"built): {worker_line(run['times'])} | {card}")
+    print(f"[loader-train] the same batches from the same weights without the loader "
+          f"(synchronous to_device in the step, no worker threads): step ms "
+          f"{[round(x, 1) for x in replay_ms]}, warm median "
+          f"{statistics.median(replay_ms[1:]):.1f} ms, {n_sustained * exp.batch_size / sum(replay_ms[SUSTAINED_FROM - 1:]) * 1e3:.2f} "
+          f"scenes/s over steps {SUSTAINED_FROM}-{LOADER_TRAIN_STEPS}; losses "
+          f"{[round(x, 4) for x in replay_losses]} | {card}")
+    print(f"[loader-train] staged batch {LOADER_TRAIN_STEPS // 2 + 1} equal bit for bit to "
+          f"a synchronous to_device of its arrays ({runs[0]['staged']} tensors) | {card}")
+
+
+class EvalStats(logging.Handler):
+    """Collects evaluate's per-dataset `eval_stats` log records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.stats = []
+
+    def emit(self, record):
+        if hasattr(record, "eval_stats"):
+            self.stats.append(record.eval_stats)
+
+
+def evaluate_with_stats(exp, model, device, **kw):
+    """evaluate(), returning (results, [per-dataset eval_stats])."""
+    logger = logging.getLogger("unidet3d_tpu_torch")
+    handler = EvalStats()
+    logger.addHandler(handler)
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    try:
+        return evaluate(exp, model, device=device, logger=lambda *a: None, **kw), handler.stats
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def oracle_map(exp) -> dict:
+    """Every validation scene's ground truth (through its dataset and test
+    pipeline) fed to IndoorMetric as its detections: {dataset: results}."""
+    metric = IndoorMetric(exp.model, exp.datasets_classes)
+    for ds in build_datasets(exp, "val"):
+        for i in range(len(ds)):
+            sample = ds[i]
+            boxes = np.zeros((len(sample["gt_bboxes_3d"]), 7), np.float32)
+            boxes[:, :sample["gt_bboxes_3d"].shape[1]] = sample["gt_bboxes_3d"]
+            labels = sample["gt_labels_3d"]
+            metric.process(ds.dataset_idx, boxes, labels, np.ones(len(labels), np.float32),
+                           np.ones(len(labels), bool), boxes, labels)
+    return metric.compute(logger=None)
+
+
+def assert_oracle(tag, exp, card):
+    """The oracle gives AP 1.0 at 0.25 and 0.50 for each class with GT."""
+    for name, res in oracle_map(exp).items():
+        classes = exp.datasets_classes[exp.model.datasets.index(name)]
+        with_gt = [c for c in classes if res.get(f"{c}_rec_0.25", 0) > 0]
+        # AP integrates precision over recall in float64: 1 - 1e-16 is 1.
+        assert with_gt and all(abs(res[f"{c}_AP_{t}"] - 1.0) <= 1e-9
+                               for c in with_gt for t in ("0.25", "0.50")), (tag, name, res)
+        print(f"[{tag}] oracle (each scene's ground truth as its detections) {name}: "
+              f"AP@0.25 = AP@0.50 = 1.0 for all {len(with_gt)} classes with ground truth, "
+              f"mAP_0.25 {res['mAP_0.25']:.6f} | {card}")
+
+
+def map_line(res) -> str:
+    return "; ".join(f"{name} mAP_0.25 {r['mAP_0.25']:.6f} mAP_0.50 {r['mAP_0.50']:.6f}"
+                     for name, r in res.items())
+
+
+def phase_eval_loop(table, card, root):
+    """evaluate() at the full config on on-disk validation sets (ScanNet
+    scenes of 48k-131k points, ARKitScenes through its test pipeline's
+    100k-point cap), groups of EVAL_BATCH, random weights: per dataset
+    scenes/s, ms per group, the buckets used and the workers' seconds; the
+    launches (37 K1 and 6 K3 per group's forward); the mAP dict; the
+    oracle."""
+    sizes = {0: EVAL_SCANNET_POINTS, ARKIT: [SCENE_POINTS] * EVAL_ARKIT_SCENES}
+    exp = experiment(default_config(), write_datasets(root, "val", sizes, 1000), "val")
+    net = seeded_init_(UniDet3D(exp.model, table, device="cuda"), 0)
+    torch.cuda.synchronize()
+    reset_counts()
+    res, stats = evaluate_with_stats(exp, net, "cuda")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    groups = sum(st["groups"] for st in stats)
+    assert launches == dict(NO_LAUNCHES, subm_conv=37 * groups, flash_attention=6 * groups), \
+        launches
+    for st in stats:
+        print(f"[eval-loop] {st['dataset']}: {st['scenes']} scenes in {st['groups']} groups of "
+              f"{EVAL_BATCH}, {st['seconds']:.2f} s: {st['scenes'] / st['seconds']:.2f} scenes/s, "
+              f"{st['seconds'] / st['groups'] * 1e3:.1f} ms per group ("
+              f"{(st['seconds'] - st['wait_s'][0]) / st['groups'] * 1e3:.1f} after the "
+              f"first group's wait); the loop's wait for "
+              f"each group {[round(w * 1e3, 1) for w in st['wait_s']]} ms; groups per "
+              f"(max_points, max_superpoints) bucket {st['buckets']}; workers' median s per "
+              f"group " + ", ".join(f"{k} {v:.3f}" for k, v in st["worker_s"].items())
+              + f" | {card}")
+    scannet = stats[0]["buckets"]
+    assert len({p for p, _ in scannet}) >= 2 and len({s for _, s in scannet}) >= 2, scannet
+    print(f"[eval-loop] launches: K1 {launches['subm_conv']}, K3 {launches['flash_attention']} "
+          f"over {groups} groups ({launches['subm_conv'] / groups:g} and "
+          f"{launches['flash_attention'] / groups:g} per forward) | {card}")
+    for name, r in res.items():
+        assert all(np.isfinite(v) for v in r.values()), (name, r)
+    print(f"[eval-loop] mAP (random weights: says nothing about accuracy): {map_line(res)} "
+          f"| {card}")
+    assert_oracle("eval-loop", exp, card)
+
+
+class RecordingMetric(IndoorMetric):
+    """IndoorMetric that also keeps each scene's whole detection arrays."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.scenes = []
+
+    def process(self, dataset_idx, boxes, labels, scores, valid, gt_boxes, gt_labels):
+        self.scenes.append((dataset_idx, boxes, labels, scores, valid))
+        super().process(dataset_idx, boxes, labels, scores, valid, gt_boxes, gt_labels)
+
+
+def phase_eval_small(table, card, root):
+    """evaluate() at a small fp32 config (full width, 8,192 points, S = 512)
+    on 4 small 3RScan scenes (no superpoint trimming, so the recorded boxes
+    are NMS's own), on the card and on the CPU from the same weights, one
+    loader thread (the test pipeline's subsampling draws from the dataset's
+    RandomState): keep masks equal but for detections moved by order swaps
+    of near-equal scores or with a same-class IoU within 1e-4 of iou_thr
+    (as [map]), equal mAP dicts, and the oracle."""
+    cfg = default_config(compute_dtype="float32", max_points=8192, voxel_capacity=8192,
+                         max_superpoints=512)
+    exp = experiment(cfg, write_datasets(root, "val", {RSCAN: SMALL_EVAL_POINTS}, 2000), "val")
+    init = seeded_init_(UniDet3D(cfg, table, device="cpu"), 0).state_dict()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        net = UniDet3D(cfg, table, device=device)
+        net.load_state_dict(init)
+        metric = RecordingMetric(cfg, exp.datasets_classes)
+        res, stats = evaluate_with_stats(exp, net, device, num_threads=1, metric=metric)
+        runs[device] = (res, stats, metric.scenes)
+    thr = cfg.iou_thr[RSCAN]
+    differ = swapped = ambiguous = 0
+    for card_scene, cpu_scene in zip(runs["cuda"][2], runs["cpu"][2]):
+        _, boxes_c, labels_c, scores_c, keep_c = card_scene
+        _, boxes, labels, scores, keep = cpu_scene
+        moved = (labels_c != labels) | (np.abs(boxes_c - boxes) > 1e-4).any(-1)
+        if moved.any():
+            assert np.abs(scores_c - scores)[moved].max() <= 1e-5
+        iou = pairwise_iou_aa(torch.from_numpy(boxes)).numpy()
+        near = (np.abs(iou - thr) < 1e-4) & (labels[:, None] == labels[None, :])
+        np.fill_diagonal(near, False)
+        near = near.any(1)
+        bad = (keep_c != keep) & ~moved & ~near
+        assert not bad.any(), int(bad.sum())
+        differ += int((keep_c != keep).sum())
+        swapped += int(moved.sum())
+        ambiguous += int(near.sum())
+    res_card, res_cpu = runs["cuda"][0], runs["cpu"][0]
+    assert res_card.keys() == res_cpu.keys()
+    for name in res_cpu:
+        for k, v in res_cpu[name].items():
+            assert abs(res_card[name][k] - v) <= 1e-6, (name, k, res_card[name][k], v)
+    st = runs["cuda"][1][0]
+    print(f"[eval-loop-small] {len(SMALL_EVAL_POINTS)} 3RScan scenes of {SMALL_EVAL_POINTS} "
+          f"pts, fp32, full width, S {cfg.max_superpoints}: buckets {st['buckets']}; keep "
+          f"masks card vs CPU: {differ} of {len(runs['cpu'][2]) * cfg.topk_insts} differ, all "
+          f"among the {swapped} moved by order swaps of near-equal scores and the "
+          f"{ambiguous} with a same-class IoU within 1e-4 of iou_thr | {card}")
+    print(f"[eval-loop-small] mAP card {map_line(res_card)}; CPU {map_line(res_cpu)}: equal "
+          f"(random weights) | {card}")
+    assert_oracle("eval-loop-small", exp, card)
 
 
 def main() -> int:
@@ -1031,6 +1495,11 @@ def main() -> int:
         train_scenes(TRAIN_BATCH, SCENE_POINTS, 0, N_GTS, datasets=ROT_TRAIN_DATASETS), cfg)
     phase_train(rot_batch, rot_gt, rot_pack, time.time() - t0, table, card, tag="train-rot",
                 steps=ROT_TRAIN_STEPS)
+    phase_native_pack([("prod group", samples), ("train batch", train_samples)], card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
+        phase_loader_train(table, card, root)
+        phase_eval_loop(table, card, root)
+        phase_eval_small(table, card, root)
 
     sources = {
         "subm_conv": ("unidet3d_tpu_torch/csrc/subm_conv.cu",

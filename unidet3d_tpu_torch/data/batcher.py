@@ -2,14 +2,20 @@
 truth and host-built rulebooks, and the move to the device.
 
 The port of the JAX package's ``data/batcher.py::collate``: the same padding,
-subsampling, features and ground-truth fields, and the GridPack with its
-(V, 27) neighbor tables built by the numpy builder. Every row dropped at a
-capacity is counted in ``data/telemetry.py::DROPS``, at the JAX collate's
-sites. Augmentations (``elastic_coords``) are not ported yet.
+subsampling, features (voxel coordinates from ``elastic_coords`` when the
+pipeline's elastic distortion made them) and ground-truth fields, and the
+GridPack with its (V, 27) neighbor tables, built by the native builder
+(``ops/gridpack.py::build_gridpack_host``) unless the caller names another
+(``build_gridpack_numpy``, the reference). Every row dropped at a capacity is
+counted in ``data/telemetry.py::DROPS``, at the JAX collate's sites.
+
+``to_device`` / ``gt_to_device`` copy synchronously from pageable memory;
+``data/loader.py``'s loaders stage their batches instead (pinned buffers, a
+side stream, an event the consumer waits on).
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -17,7 +23,7 @@ import torch
 from ..core.config import ModelConfig
 from ..device import resolve_device
 from ..models.detector import GTBatch, PointBatch
-from ..ops.gridpack import GridPack, build_gridpack_numpy, quantize_points
+from ..ops.gridpack import GridPack, build_gridpack_host, quantize_points
 from .telemetry import DROPS
 
 
@@ -25,18 +31,25 @@ def collate(
     samples: List[dict],
     cfg: ModelConfig,
     rng: np.random.RandomState | None = None,
+    build_rulebooks: bool = True,
+    builder: Callable = build_gridpack_host,
 ) -> Tuple[PointBatch, GTBatch, GridPack]:
     """Returns (PointBatch, GTBatch, GridPack) of numpy arrays for a group of
-    scenes.
+    scenes; the GridPack is None when build_rulebooks is False (the caller
+    then runs ``build_packs`` itself).
 
     Each sample holds "points" (N, 6) [xyz, rgb], "dataset_idx" and
     optionally "sp_pts_mask" (N,) superpoint ids and the ground truth:
     "gt_bboxes_3d" (n, 6 or 7), "gt_labels_3d" (n,), "gt_sp_masks"
-    (n, n_superpoints) bool, "pts_instance_mask" (N,) instance ids. Scenes
+    (n, n_superpoints) bool, "pts_instance_mask" (N,) instance ids, and
+    "elastic_coords" (N, 3), the voxel-unit coordinates of the elastic
+    distortion (otherwise points / voxel_size). Scenes
     with more than cfg.max_points points are subsampled uniformly at random;
     superpoint ids beyond cfg.max_superpoints are folded into the last slot;
     GTs beyond cfg.max_gts are dropped; voxels beyond a level's capacity are
-    dropped by the pack builder. DROPS counts each."""
+    dropped by the pack builder. DROPS counts each. `builder(bxyz, valid,
+    caps)` builds the rulebooks (``build_packs``); subsampling draws from
+    `rng`, as the JAX collate does."""
     rng = rng or np.random.RandomState(0)
     b = len(samples)
     p, s, g = cfg.max_points, cfg.max_superpoints, cfg.max_gts
@@ -70,7 +83,10 @@ def collate(
         mean = pts[sel, :3].mean(0) if n else np.zeros(3)
         features[i, :n, :3] = pts[sel, 3:6]
         features[i, :n, 3:] = pts[sel, :3] - mean
-        vox_src[i, :n] = pts[sel, :3] / cfg.voxel_size
+        if "elastic_coords" in sm:
+            vox_src[i, :n] = sm["elastic_coords"][sel]
+        else:
+            vox_src[i, :n] = pts[sel, :3] / cfg.voxel_size
 
         sp = sm.get("sp_pts_mask")
         if sp is not None:
@@ -108,10 +124,17 @@ def collate(
         labels=labels, boxes=boxes, valid=gt_valid, sp_masks=sp_masks,
         inst_ids=inst_ids,
     )
-    caps = cfg.level_capacities(b)
-    pack, _ = build_gridpack_numpy(
-        quantize_points(vox_src, valid), valid.reshape(-1), caps
-    )
+    pack = build_packs(vox_src, valid, cfg, builder) if build_rulebooks else None
+    return batch, gt, pack
+
+
+def build_packs(vox_src: np.ndarray, valid: np.ndarray, cfg: ModelConfig,
+                builder: Callable = build_gridpack_host) -> GridPack:
+    """The GridPack of a collated (B, P, 3) vox_src / (B, P) valid, built by
+    `builder(bxyz, valid, caps)` at cfg's level capacities, with the
+    voxels it dropped counted in DROPS."""
+    caps = cfg.level_capacities(vox_src.shape[0])
+    pack, _ = builder(quantize_points(vox_src, valid), valid.reshape(-1), caps)
     # Valid points whose level-0 voxel was dropped, and valid voxels whose
     # parent overflowed the next level.
     DROPS.add("voxels_dropped",
@@ -119,40 +142,42 @@ def collate(
     for lvl, par in enumerate(pack.parent):
         DROPS.add("coarse_voxels_dropped",
                   int((par[pack.valid[lvl]] >= caps[lvl + 1]).sum()))
-    return batch, gt, pack
+    return pack
+
+
+def map_arrays(fn, tree):
+    """`tree` (a PointBatch, GTBatch or GridPack) with `fn` applied to each of
+    its arrays; a GridPack's n_valid stays host ints."""
+    if isinstance(tree, GridPack):
+        return GridPack(
+            valid=tuple(map(fn, tree.valid)),
+            neighbors=tuple(map(fn, tree.neighbors)),
+            parent=tuple(map(fn, tree.parent)),
+            offset_code=tuple(map(fn, tree.offset_code)),
+            point_inverse=fn(tree.point_inverse),
+            n_valid=tuple(tree.n_valid),
+        )
+    return type(tree)(*map(fn, tree))
 
 
 def to_device(
     batch: PointBatch, pack: GridPack, device="cuda"
 ) -> Tuple[PointBatch, GridPack]:
     """Copy a collated (batch, pack) to `device` ("cuda" unless the caller
-    asks for "cpu"). pack.n_valid stays host ints."""
+    asks for "cpu"), synchronously. pack.n_valid stays host ints."""
     device = resolve_device(device)
 
     def put(x):
         return _put(x, device)
 
-    def put_all(xs):
-        return tuple(put(x) for x in xs)
-
-    return (
-        PointBatch(*(put(x) for x in batch)),
-        GridPack(
-            valid=put_all(pack.valid),
-            neighbors=put_all(pack.neighbors),
-            parent=put_all(pack.parent),
-            offset_code=put_all(pack.offset_code),
-            point_inverse=put(pack.point_inverse),
-            n_valid=tuple(pack.n_valid),
-        ),
-    )
+    return map_arrays(put, batch), map_arrays(put, pack)
 
 
 def gt_to_device(gt: GTBatch, device="cuda") -> GTBatch:
     """Copy a collated GTBatch to `device` ("cuda" unless the caller asks for
     "cpu")."""
     device = resolve_device(device)
-    return GTBatch(*(_put(x, device) for x in gt))
+    return map_arrays(lambda x: _put(x, device), gt)
 
 
 def _put(x, device):

@@ -12,6 +12,9 @@ counts match real scans: level-0 voxels ~= 0.63 * points, level merges
 """
 from __future__ import annotations
 
+import os
+import pickle
+
 import numpy as np
 
 # Real-scan surface point density (see module docstring): ScanNet
@@ -156,3 +159,40 @@ def stripe_superpoints(points: np.ndarray, size: int) -> np.ndarray:
     sp = np.empty(len(points), np.int64)
     sp[order] = np.arange(len(points)) // size
     return sp
+
+
+def write_info_dataset(root: str, scenes, ann_file: str = "infos.pkl") -> str:
+    """Writes `scenes` under `root` in the reference's info format (the one
+    ``data/datasets.py::IndoorDataset`` reads) and returns the info file's
+    path. Each scene is a dict with "name" and "points" (N, 6) float32
+    [xyz, colors as the dataset stores them], and optionally
+    "instance_mask", "semantic_mask", "super_points" (N,) int64,
+    "boxes" (n, 6 or 7) gravity-center boxes with their raw "labels" (n,),
+    and "axis_align_matrix" (4, 4)."""
+    files = {"instance_mask": "pts_instance_mask_path",
+             "semantic_mask": "pts_semantic_mask_path",
+             "super_points": "super_pts_path"}
+    data_list = []
+    for scene in scenes:
+        name = scene["name"]
+        entry = {"lidar_points": {"lidar_path": f"points/{name}.bin"}}
+        os.makedirs(os.path.join(root, "points"), exist_ok=True)
+        np.asarray(scene["points"], np.float32).tofile(
+            os.path.join(root, "points", f"{name}.bin"))
+        for sub, key in files.items():
+            if scene.get(sub) is not None:
+                os.makedirs(os.path.join(root, sub), exist_ok=True)
+                np.asarray(scene[sub], np.int64).tofile(
+                    os.path.join(root, sub, f"{name}.bin"))
+                entry[key] = f"{sub}/{name}.bin"
+        if scene.get("axis_align_matrix") is not None:
+            entry["axis_align_matrix"] = np.asarray(scene["axis_align_matrix"]).tolist()
+        entry["instances"] = [
+            {"bbox_3d": [float(v) for v in box], "bbox_label_3d": int(label)}
+            for box, label in zip(scene.get("boxes", ()), scene.get("labels", ()))
+        ]
+        data_list.append(entry)
+    path = os.path.join(root, ann_file)
+    with open(path, "wb") as f:
+        pickle.dump({"metainfo": {}, "data_list": data_list}, f)
+    return path

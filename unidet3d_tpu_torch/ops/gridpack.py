@@ -1,7 +1,10 @@
 """GridPack: the sparse-conv rulebooks for one batch, built on the host.
 
 The port's copy of the numpy builder in the JAX package's ``ops/gridpack.py``
-(same semantics, bit for bit). For each U-Net level l:
+(same semantics, bit for bit), the reference of the native builder
+(``native/rulebook.cc``) that ``build_gridpack_host`` runs.
+
+For each U-Net level l:
   * valid[l]: (V_l,) voxel validity; valid voxels are a prefix of the rows
   * neighbors[l]: (V_l, 27) submanifold-conv neighbor table (sentinel V_l)
   * n_valid[l]: the number of valid voxels, a host int, so that the conv
@@ -49,6 +52,18 @@ _SUBM_OFFSETS = np.array(
 def _pack64(bxyz: np.ndarray) -> np.ndarray:
     b, x, y, z = (bxyz[:, i].astype(np.int64) for i in range(4))
     return (b << 36) | (x << 24) | (y << 12) | z
+
+
+def build_gridpack_host(
+    bxyz: np.ndarray, point_valid: np.ndarray, capacities: Sequence[int],
+    num_threads: int | None = None,
+):
+    """The native (C++) GridPack builder with an explicit thread count, the
+    builder ``collate`` calls. Same contract and tables as
+    build_gridpack_numpy; raises if the library cannot be built."""
+    from ..native.rulebook import build_gridpack
+
+    return build_gridpack(bxyz, point_valid, capacities, n_threads=num_threads)
 
 
 def build_gridpack_numpy(
