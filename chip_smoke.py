@@ -82,13 +82,13 @@ Phases (any failure raises and the script exits non-zero):
      directory and removed at the end) -> TrainLoader over their
      ConcatDataset with augmentation on (elastic distortion for ScanNet),
      batch 8 at the full config, the batches staged on the card by the
-     loader's workers (pinned buffers, a side stream) -> 10 steps of
+     loader's workers (pinned buffers, a side stream) -> 8 steps of
      make_train_step: launches of every step (37/36/37/6/6/6), finite
      losses, step time with the wait excluded, the consumer's wait in
-     next(loader), the sustained scenes/s over steps 3-10 with the waits,
+     next(loader), the sustained scenes/s over steps 3-8 with the waits,
      the workers' seconds per batch (pipeline, collate, pack, staging), and
      one staged batch bit-equal to a synchronous to_device of its arrays;
-     the same 10 batches again with 2 and 8 workers, and once more with no
+     the same 8 batches again with 2 and 8 workers, and once more with no
      loader running (synchronous to_device in each step);
  17. [eval-loop]: evaluate() at the full config over on-disk validation sets
      (12 ScanNet scenes of 48k-131k points, 8 ARKitScenes scenes through
@@ -100,7 +100,29 @@ Phases (any failure raises and the script exits non-zero):
  18. [eval-loop-small]: evaluate() at a small fp32 config on 4 small 3RScan
      scenes on the card and on the CPU from the same weights: keep masks
      (as [map]), equal mAP dicts, the oracle;
- 19. the whole script's wall time, the `kernels` JSON line (per training
+ 19. [train-cli]: tools.train.main in this process (the user's entry
+     point: train() over TrainLoader, checkpoints, validation) with a config
+     file the phase writes: the full config, batch 8, 2 epochs x 4 steps on
+     phase 16's on-disk training sets, a log line every 2 steps, a
+     checkpoint every epoch keeping 1, validation after epoch 2 on phase
+     17's validation sets: launches per step (37/36/37/6/6/6 once the
+     validation's forwards are taken out), finite losses, the loop's
+     sustained scenes/s over steps 3-8 beside phase 16's, seconds and bytes
+     per checkpoint save (model and AdamW moments copied off the card), the
+     validation's seconds;
+ 20. [test-cli]: tools.test.main on that checkpoint: the validation's
+     datasets, scenes, groups and buckets, and its mAP within MAP_BOUND of
+     the in-loop validation's on every result key;
+ 21. [resume]: the kept checkpoint equal bit for bit to the model and
+     optimizer train() returned, and restored into a fresh pair bit for bit
+     (count 8, the next lr the schedule's at 8); then tools.train.main
+     --resume auto with epochs 3: it starts at step 8 and trains epoch 3
+     (launches per step, the lr at step 10);
+ 22. [load-from]: a synthetic reference-format unidet3d.pth at the
+     production widths through tools.convert_checkpoint.main, then
+     tools.train.main with load_from and no epochs: every backbone.* tensor
+     equal to the converted one, every decoder.* tensor to the seeded init;
+ 23. the whole script's wall time, the `kernels` JSON line (per training
      step of phase 13; the probe's modes per probe call), the card's name
      and power limit, and the final JSON line.
 Times are CUDA-event means (the conv kernels per shape: the median of 5 such
@@ -108,6 +130,7 @@ means) or synchronised host-clock medians on the card in this run.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -123,7 +146,12 @@ import torch.nn.functional as F
 
 from unidet3d_tpu_torch.core.class_table import build_class_table
 from unidet3d_tpu_torch.core.config import DATASETS_CLASSES, default_config
-from unidet3d_tpu_torch.core.experiment import DatasetSpec, ExperimentConfig
+from unidet3d_tpu_torch.core.experiment import (
+    DatasetSpec,
+    ExperimentConfig,
+    apply_overrides,
+    load_experiment,
+)
 from unidet3d_tpu_torch.data.batcher import (
     build_packs,
     collate,
@@ -135,6 +163,7 @@ from unidet3d_tpu_torch.data.dataset_specs import DEFAULT_LABEL_MAPPINGS, SCANNE
 from unidet3d_tpu_torch.data.datasets import ConcatDataset
 from unidet3d_tpu_torch.data.loader import TrainLoader
 from unidet3d_tpu_torch.data.synthetic import (
+    reference_state_dict,
     stripe_superpoints,
     synthetic_scene,
     write_info_dataset,
@@ -172,8 +201,12 @@ from unidet3d_tpu_torch.ops.subm_conv_cuda import (
     wgrad_tile,
 )
 from unidet3d_tpu_torch.parallel.train_step import make_train_step
+from unidet3d_tpu_torch.tools import convert_checkpoint
+from unidet3d_tpu_torch.tools import test as test_cli
+from unidet3d_tpu_torch.tools import train as train_cli
 from unidet3d_tpu_torch.tools.probe_conv_bottleneck import measure, probe_inputs, run_modes
-from unidet3d_tpu_torch.train.loop import build_datasets, evaluate
+from unidet3d_tpu_torch.train.checkpoint import CheckpointManager
+from unidet3d_tpu_torch.train.loop import build_datasets, build_model, evaluate
 from unidet3d_tpu_torch.train.metric import IndoorMetric
 from unidet3d_tpu_torch.train.optim import make_optimizer
 from unidet3d_tpu_torch.weights import seeded_init_
@@ -1034,8 +1067,8 @@ def phase_train(batch, gt, pack, pack_s, table, card, tag="train", steps=TRAIN_S
 
 # [native-pack], [loader-train], [eval-loop] and [eval-loop-small].
 LOADER_TRAIN_SCENES = {0: 8, 2: 4, ARKIT: 4}  # on disk: ScanNet, MultiScan, ARKitScenes
-LOADER_TRAIN_STEPS = 10
-SUSTAINED_FROM = 3  # [loader-train]'s sustained rate: steps 3-10, waits included
+LOADER_TRAIN_STEPS = 8  # sustained over steps 3-8, the window of [train-cli]
+SUSTAINED_FROM = 3  # [loader-train]'s sustained rate from step 3 on, waits included
 # [loader-train]'s runs: TrainLoader's default workers (half the cores), then
 # 2 and 8 (the JAX loader's default on an 8-core host) on the same batches.
 LOADER_WORKERS = (None, 2, 8)
@@ -1283,32 +1316,46 @@ def phase_loader_train(table, card, root):
           f"{[round(x, 4) for x in replay_losses]} | {card}")
     print(f"[loader-train] staged batch {LOADER_TRAIN_STEPS // 2 + 1} equal bit for bit to "
           f"a synchronous to_device of its arrays ({runs[0]['staged']} tensors) | {card}")
+    return runs[0]["workers"], n_sustained * exp.batch_size / runs[0]["wall"]
 
 
-class EvalStats(logging.Handler):
-    """Collects evaluate's per-dataset `eval_stats` log records."""
+class LoopRecords(logging.Handler):
+    """Collects the training loop's `train_stats` and evaluate's per-dataset
+    `eval_stats` log records."""
 
     def __init__(self):
         super().__init__(logging.INFO)
-        self.stats = []
+        self.train, self.eval = [], []
 
     def emit(self, record):
+        if hasattr(record, "train_stats"):
+            self.train.append(record.train_stats)
         if hasattr(record, "eval_stats"):
-            self.stats.append(record.eval_stats)
+            self.eval.append(record.eval_stats)
+
+    def of(self, kind) -> list:
+        return [st for st in self.train if st["kind"] == kind]
+
+
+@contextlib.contextmanager
+def loop_records():
+    """The port's logger at INFO with a LoopRecords attached."""
+    logger = logging.getLogger("unidet3d_tpu_torch")
+    handler, level = LoopRecords(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield handler
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
 
 
 def evaluate_with_stats(exp, model, device, **kw):
     """evaluate(), returning (results, [per-dataset eval_stats])."""
-    logger = logging.getLogger("unidet3d_tpu_torch")
-    handler = EvalStats()
-    logger.addHandler(handler)
-    level = logger.level
-    logger.setLevel(logging.INFO)
-    try:
-        return evaluate(exp, model, device=device, logger=lambda *a: None, **kw), handler.stats
-    finally:
-        logger.removeHandler(handler)
-        logger.setLevel(level)
+    with loop_records() as rec:
+        res = evaluate(exp, model, device=device, logger=lambda *a: None, **kw)
+    return res, rec.eval
 
 
 def oracle_map(exp) -> dict:
@@ -1448,6 +1495,235 @@ def phase_eval_small(table, card, root):
     assert_oracle("eval-loop-small", exp, card)
 
 
+# [train-cli], [test-cli], [resume] and [load-from]: the training loop, the
+# CLIs and checkpoints at the full config on [loader-train]'s and
+# [eval-loop]'s on-disk datasets.
+CLI_STEPS = 4  # steps per epoch
+CLI_EPOCHS = 2  # validation after epoch 2; [resume] adds epoch 3
+CLI_CONFIG = """
+from unidet3d_tpu_torch.core.config import default_config
+from unidet3d_tpu_torch.core.experiment import DatasetSpec, ExperimentConfig
+
+
+def get_config():
+    return ExperimentConfig(
+        model=default_config(), batch_size={batch}, epochs={epochs}, steps_per_epoch={steps},
+        log_interval=2, ckpt_interval_epochs=1, ckpt_max_keep=1, val_interval_epochs=2,
+        val_last_epochs=0, eval_batch_size={eval_batch}, seed=0, work_dir={work!r},
+        datasets=(
+            DatasetSpec("scannet", {scannet!r}, ann_train="infos_train.pkl",
+                        ann_val="infos_val.pkl"),
+            DatasetSpec("multiscan", {multiscan!r}, ann_train="infos_train.pkl"),
+            DatasetSpec("arkitscenes", {arkit!r}, ann_train="infos_train.pkl",
+                        ann_val="infos_val.pkl"),
+        ))
+"""
+# The test CLI's mAP against the in-loop validation's, per key of the results:
+# the eval forward's index_add_ sums are atomic on the card, so two runs'
+# scores differ in their last bits and near-equal detections may swap ranks.
+MAP_BOUND = 1e-3
+
+
+def states_equal(a, b) -> bool:
+    """Nested dicts / lists of tensors and numbers equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(states_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(states_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def cli_launches(launches, steps, groups) -> dict:
+    """The launches per training step once `groups` eval forwards (37 K1 and
+    6 K3 each) are taken out; asserts they divide evenly."""
+    per_step = {}
+    for name, n in launches.items():
+        n -= {"subm_conv": 37, "flash_attention": 6}.get(name, 0) * groups
+        assert n % steps == 0, (name, launches[name], steps, groups)
+        per_step[name] = n // steps
+    return per_step
+
+
+def sets_of(eval_stats) -> list:
+    """(dataset, scenes, groups, buckets) of each evaluated dataset."""
+    return [(st["dataset"], st["scenes"], st["groups"], st["buckets"]) for st in eval_stats]
+
+
+def phase_train_cli(card, root, loader_sustained):
+    """tools.train.main in this process on the card, with a config file this
+    phase writes (the full config, batch 8, CLI_EPOCHS epochs of CLI_STEPS
+    steps, a log line every 2 steps, a checkpoint every epoch keeping 1,
+    validation after epoch 2) over [loader-train]'s training sets and
+    [eval-loop]'s validation sets: launches per step (37/36/37/6/6/6, the
+    validation's forwards taken out), finite losses, the loop's sustained
+    scenes/s beside [loader-train]'s, seconds and bytes per checkpoint save,
+    the validation's seconds. Returns what [test-cli] and [resume] need."""
+    names = {0: "scannet", 2: "multiscan", ARKIT: "arkitscenes"}
+    cfg_path = os.path.join(root, "train_cli_config.py")
+    with open(cfg_path, "w") as f:
+        f.write(CLI_CONFIG.format(batch=TRAIN_BATCH, epochs=CLI_EPOCHS, steps=CLI_STEPS,
+                                  eval_batch=EVAL_BATCH, work=os.path.join(root, "work"),
+                                  **{("arkit" if ds == ARKIT else n): os.path.join(root, n)
+                                     for ds, n in names.items()}))
+    torch.cuda.synchronize()
+    reset_counts()
+    with loop_records() as rec:
+        net, opt = train_cli.main([cfg_path])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    steps = CLI_EPOCHS * CLI_STEPS
+    groups = sum(st["groups"] for st in rec.eval)
+    per_step = cli_launches(launches, steps, groups)
+    assert per_step == TRAIN_LAUNCHES, (per_step, launches, groups)
+    assert opt.count == steps
+    intervals = rec.of("interval")
+    assert [st["step"] for st in intervals] == list(range(2, steps + 1, 2)), intervals
+    assert all(np.isfinite(st["loss"]) for st in intervals), intervals
+    later = intervals[1:]  # the first interval holds the loader's start
+    sustained = sum(st["steps"] for st in later) * TRAIN_BATCH / sum(st["seconds"] for st in later)
+    ckpts, (val,) = rec.of("checkpoint"), rec.of("val")
+    print(f"[train-cli] tools.train.main: {CLI_EPOCHS} epochs x {CLI_STEPS} steps, batch "
+          f"{TRAIN_BATCH} at the full config from [loader-train]'s on-disk sets, validation "
+          f"after epoch {val['epoch']} on [eval-loop]'s ({groups} groups) | {card}")
+    print(f"[train-cli] launches {launches}: per step (the validation's {groups} forwards "
+          f"taken out) " + ", ".join(f"{k} {v}" for k, v in per_step.items()) + f" | {card}")
+    print(f"[train-cli] losses at steps {[st['step'] for st in intervals]}: "
+          f"{[round(st['loss'], 4) for st in intervals]} (ema {intervals[-1]['ema']:.4f}); "
+          f"s per step by interval {[round(st['seconds'] / st['steps'], 3) for st in intervals]}"
+          f"; epochs {[round(st['seconds'], 2) for st in rec.of('epoch')]} s | {card}")
+    print(f"[train-cli] sustained {sustained:.2f} scenes/s over steps 3-{steps} (log intervals, "
+          f"waits included) against [loader-train]'s {loader_sustained[1]:.2f} "
+          f"({loader_sustained[0]} workers) | {card}")
+    print(f"[train-cli] checkpoint saves: " + ", ".join(
+        f"step {st['step']} {st['bytes']} bytes in {st['seconds']:.3f} s "
+        f"({st['bytes'] / st['seconds'] / 1e9:.2f} GB/s)" for st in ckpts) + f" | {card}")
+    print(f"[train-cli] validation after epoch {val['epoch']}: {val['seconds']:.2f} s; "
+          f"{map_line(val['results'])} | {card}")
+    return dict(cfg=cfg_path, net=net, opt=opt, val=val, val_sets=sets_of(rec.eval),
+                ckpt_dir=os.path.join(root, "work", "checkpoints"))
+
+
+def phase_test_cli(card, cli):
+    """tools.test.main on [train-cli]'s checkpoint (step 8): the same
+    datasets, scenes, groups and buckets as the in-loop validation, and its
+    results against the validation's, every key within MAP_BOUND."""
+    torch.cuda.synchronize()
+    reset_counts()
+    with loop_records() as rec:
+        res = test_cli.main([cli["cfg"], cli["ckpt_dir"], "--step", str(CLI_EPOCHS * CLI_STEPS)])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    groups = sum(st["groups"] for st in rec.eval)
+    assert launches == dict(NO_LAUNCHES, subm_conv=37 * groups, flash_attention=6 * groups), \
+        launches
+    assert sets_of(rec.eval) == cli["val_sets"], (sets_of(rec.eval), cli["val_sets"])
+    ref = cli["val"]["results"]
+    assert res.keys() == ref.keys() and all(r.keys() == ref[n].keys() for n, r in res.items())
+    worst = max(abs(r[k] - ref[n][k]) for n, r in res.items() for k in r)
+    assert worst <= MAP_BOUND, (worst, res, ref)
+    print(f"[test-cli] tools.test.main on step {CLI_EPOCHS * CLI_STEPS}: {map_line(res)}; "
+          f"in-loop validation {map_line(ref)}; largest difference over "
+          f"{sum(len(r) for r in res.values())} result keys {worst:.3g} (bound {MAP_BOUND}: "
+          f"atomic index_add_ in the eval forward); launches K1 {launches['subm_conv']}, K3 "
+          f"{launches['flash_attention']} over {groups} groups | {card}")
+
+
+def phase_resume(card, cli):
+    """[train-cli]'s kept checkpoint (step 8, the only one kept) equal bit
+    for bit to the model and optimizer train() returned; restored into a
+    fresh model and optimizer (epochs 3) bit for bit, count 8 and the next lr
+    the schedule's at 8; then tools.train.main --resume auto with epochs 3:
+    it starts at step 8, trains epoch 3 only (launches per step) and keeps
+    step 12."""
+    steps = CLI_EPOCHS * CLI_STEPS
+    mngr = CheckpointManager(cli["ckpt_dir"])
+    assert mngr.all_steps() == [steps], mngr.all_steps()
+    size = os.path.getsize(mngr.path(steps))
+    ckpt = torch.load(mngr.path(steps), map_location="cuda", weights_only=True)
+    assert ckpt["step"] == steps
+    assert states_equal(ckpt["model"], cli["net"].state_dict())
+    assert states_equal(ckpt["optimizer"], cli["opt"].state_dict())
+    exp = apply_overrides(load_experiment(cli["cfg"]), [f"epochs={CLI_EPOCHS + 1}"])
+    net, _ = build_model(exp)
+    total = exp.epochs * exp.steps_per_epoch
+    opt = make_optimizer(net.parameters(), base_lr=exp.lr, weight_decay=exp.weight_decay,
+                         total_steps=total, power=exp.lr_power, clip_norm=exp.clip_norm)
+    t0 = time.perf_counter()
+    assert mngr.restore(net, opt) == steps
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert states_equal(net.state_dict(), cli["net"].state_dict())
+    assert states_equal(opt.state_dict(), cli["opt"].state_dict())
+    next_lr = exp.lr * (1 - steps / total) ** exp.lr_power
+    assert opt.count == steps and opt.schedule(opt.count) == next_lr
+    del net, opt, ckpt
+    torch.cuda.synchronize()
+    reset_counts()
+    with loop_records() as rec:
+        _, opt = train_cli.main([cli["cfg"], "--resume", "auto", "--cfg-options",
+                                 f"epochs={CLI_EPOCHS + 1}"])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    assert rec.of("resume") == [dict(kind="resume", step=steps)], rec.of("resume")
+    intervals = rec.of("interval")
+    assert [(st["epoch"], st["step"]) for st in intervals] == [
+        (CLI_EPOCHS + 1, steps + 2), (CLI_EPOCHS + 1, steps + 4)], intervals
+    assert intervals[0]["lr"] == exp.lr * (1 - (steps + 1) / total) ** exp.lr_power
+    assert all(np.isfinite(st["loss"]) for st in intervals)
+    per_step = cli_launches(launches, CLI_STEPS, 0)
+    assert per_step == TRAIN_LAUNCHES and opt.count == steps + CLI_STEPS, (per_step, opt.count)
+    assert mngr.all_steps() == [steps + CLI_STEPS]
+    print(f"[resume] checkpoint of step {steps} ({size} bytes) equal bit for bit to the model and optimizer train() returned; restored "
+          f"into a fresh model and optimizer in {restore_s:.3f} s, bit for bit, count {steps}, "
+          f"next lr {next_lr:.6e} = the schedule's at {steps} of {total} | {card}")
+    print(f"[resume] --resume auto, epochs {CLI_EPOCHS + 1}: resumed from step {steps}, "
+          f"epoch {CLI_EPOCHS + 1} only (steps {[st['step'] for st in intervals]}, losses "
+          f"{[round(st['loss'], 4) for st in intervals]}, lr {intervals[0]['lr']:.6e} at step "
+          f"{steps + 2}), count {opt.count}, kept {mngr.all_steps()}; launches per step "
+          + ", ".join(f"{k} {v}" for k, v in per_step.items()) + f" | {card}")
+
+
+def phase_load_from(card, root, cli, table):
+    """A synthetic reference-format unidet3d.pth at the production widths
+    through tools.convert_checkpoint.main, then tools.train.main with
+    load_from (prefix backbone) and no epochs, so that what it returns is the
+    initialised model: every backbone.* tensor (parameters and running
+    statistics) equal to the converted one, every decoder.* tensor to the
+    seeded init."""
+    cfg = default_config()
+    src, dst = os.path.join(root, "unidet3d.pth"), os.path.join(root, "converted.pth")
+    torch.save({"state_dict": reference_state_dict(cfg.num_planes, cfg.d_model, cfg.num_layers,
+                                                   len(table.unified_classes))}, src)
+    t0 = time.perf_counter()
+    converted = convert_checkpoint.main(
+        [src, dst, "--planes", *map(str, cfg.num_planes), "--d-model", str(cfg.d_model),
+         "--heads", str(cfg.num_heads), "--layers", str(cfg.num_layers)])
+    convert_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts()
+    with loop_records():
+        net, _ = train_cli.main([cli["cfg"], "--work-dir", os.path.join(root, "work_load"),
+                                 "--cfg-options", "epochs=0", f"load_from={dst}"])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    assert launches == NO_LAUNCHES, launches
+    init = seeded_init_(UniDet3D(cfg, table, device="cpu"), 0).state_dict()
+    got = {k: v.cpu() for k, v in net.state_dict().items()}
+    backbone = [k for k in got if k.startswith("backbone.")]
+    decoder = [k for k in got if k.startswith("decoder.")]
+    assert len(backbone) + len(decoder) == len(got)
+    assert all(torch.equal(got[k], converted[k]) for k in backbone)
+    assert all(torch.equal(got[k], init[k]) for k in decoder)
+    n_stats = sum(k.endswith(("running_mean", "running_var")) for k in backbone)
+    print(f"[load-from] tools.convert_checkpoint.main on a synthetic reference unidet3d.pth at "
+          f"the production widths: {len(converted)} tensors in {convert_s:.2f} s; "
+          f"tools.train.main with load_from: all {len(backbone)} backbone.* tensors (of them "
+          f"{n_stats} running statistics) equal to the converted ones, all {len(decoder)} "
+          f"decoder.* tensors equal to seeded_init_(seed 0); no kernel launched | {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip smoke needs the card",
@@ -1497,9 +1773,14 @@ def main() -> int:
                 steps=ROT_TRAIN_STEPS)
     phase_native_pack([("prod group", samples), ("train batch", train_samples)], card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
-        phase_loader_train(table, card, root)
+        loader_sustained = phase_loader_train(table, card, root)
         phase_eval_loop(table, card, root)
         phase_eval_small(table, card, root)
+        cli = phase_train_cli(card, root, loader_sustained)
+        phase_test_cli(card, cli)
+        phase_resume(card, cli)
+        phase_load_from(card, root, cli, table)
+        del cli
 
     sources = {
         "subm_conv": ("unidet3d_tpu_torch/csrc/subm_conv.cu",

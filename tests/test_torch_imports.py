@@ -36,6 +36,9 @@ def test_port_and_chip_smoke_import_no_jax():
     report = json.loads(res.stdout.strip().splitlines()[-1])
     assert "unidet3d_tpu_torch.models.detector" in report["imported"]
     assert "unidet3d_tpu_torch.tools.probe_conv_bottleneck" in report["imported"]
+    for name in ("tools.train", "tools.test", "tools.convert_checkpoint", "train.checkpoint",
+                 "train.profiling", "configs.unidet3d_joint", "configs.unidet3d_scannet"):
+        assert f"unidet3d_tpu_torch.{name}" in report["imported"], name
     assert report["bad"] == []
 
 

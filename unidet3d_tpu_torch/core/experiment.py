@@ -7,8 +7,9 @@ it. CLI overrides use dotted `key=value` pairs like the reference's
 `--cfg-options` (tools/train.py:38-47).
 
 The port's own copy of the JAX package's ``core/experiment.py``, over the
-port's ``core/config.py``. The port's own experiment files come with its
-CLIs; the repo's ``configs/*.py`` build the JAX package's configs.
+port's ``core/config.py``. The port's own experiment files are in
+``unidet3d_tpu_torch/configs/``; the repo's ``configs/*.py`` build the JAX
+package's configs.
 """
 from __future__ import annotations
 

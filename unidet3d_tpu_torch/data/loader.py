@@ -133,10 +133,13 @@ class TrainLoader:
     its own RandomState derived from (seed, n), from which the scene draws,
     the pipeline's augmentations and collate's subsampling all draw, and the
     consumer reassembles batches in index order through a reorder buffer.
-    Yields TrainBatch. A worker's exception is raised in the consumer."""
+    The first batch yielded is batch `start`: the training loop starts at 1,
+    since the JAX loop draws batch 0 to initialise its state. Yields
+    TrainBatch. A worker's exception is raised in the consumer."""
 
     def __init__(self, dataset, cfg: ModelConfig, batch_size: int, seed: int = 0,
-                 prefetch: int = 2, num_threads: int | None = None, device="cuda"):
+                 prefetch: int = 2, num_threads: int | None = None, device="cuda",
+                 start: int = 0):
         if num_threads is None:
             # Half the cores: the workers' numpy / scipy pipelines hold the
             # GIL in parts, and the native builder spreads its loops over
@@ -153,9 +156,9 @@ class TrainLoader:
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._lock = threading.Lock()
-        self._n_drawn = 0  # next batch index to build (guarded by _lock)
+        self._n_drawn = start  # next batch index to build (guarded by _lock)
         self._buf: dict = {}  # consumer-side reorder buffer
-        self._next_out = 0  # next batch index to yield
+        self._next_out = start  # next batch index to yield
         self._threads = [
             threading.Thread(target=self._worker, daemon=True,
                              name=f"train-loader-{i}")

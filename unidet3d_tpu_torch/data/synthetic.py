@@ -16,6 +16,7 @@ import os
 import pickle
 
 import numpy as np
+import torch
 
 # Real-scan surface point density (see module docstring): ScanNet
 # vh_clean_2 decimated meshes ~ 2 cm vertex spacing ~= 2500 pts / m^2.
@@ -196,3 +197,74 @@ def write_info_dataset(root: str, scenes, ann_file: str = "infos.pkl") -> str:
     with open(path, "wb") as f:
         pickle.dump({"metainfo": {}, "data_list": data_list}, f)
     return path
+
+
+def reference_state_dict(planes, d_model: int, layers: int, n_cls: int, cin: int = 6,
+                         seed: int = 0) -> dict:
+    """A state dict with the reference model's exact key set and shapes
+    (``unidet3d.pth``: spconv (Cout, k, k, k, Cin) kernels, BN with running
+    statistics, ``nn.MultiheadAttention`` in_proj / out_proj, FFN and heads),
+    filled with normal draws from one torch.Generator(seed) in key order, for
+    the checkpoint converter's tests and the chip smoke."""
+    sd = {}
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(*shape, generator=g)
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = w(c)
+        sd[f"{prefix}.bias"] = w(c)
+        sd[f"{prefix}.running_mean"] = w(c)
+        sd[f"{prefix}.running_var"] = w(c).abs() + 0.5
+
+    def block(prefix, ci, co):
+        bn(f"{prefix}.conv_branch.0", ci)
+        sd[f"{prefix}.conv_branch.2.weight"] = w(co, 3, 3, 3, ci)
+        bn(f"{prefix}.conv_branch.3", co)
+        sd[f"{prefix}.conv_branch.5.weight"] = w(co, 3, 3, 3, co)
+        if ci != co:
+            sd[f"{prefix}.i_branch.0.weight"] = w(co, 1, 1, 1, ci)
+
+    sd["input_conv.0.weight"] = w(planes[0], 3, 3, 3, cin)
+    bn("output_layer.0", planes[0])
+    for lvl in range(len(planes)):
+        u = "unet." + "u." * lvl
+        for i in range(2):
+            block(f"{u}blocks.block{i}", planes[lvl], planes[lvl])
+        if lvl < len(planes) - 1:
+            bn(f"{u}conv.0", planes[lvl])
+            sd[f"{u}conv.2.weight"] = w(planes[lvl + 1], 2, 2, 2, planes[lvl])
+            bn(f"{u}deconv.0", planes[lvl + 1])
+            sd[f"{u}deconv.2.weight"] = w(planes[lvl], 2, 2, 2, planes[lvl + 1])
+            block(f"{u}blocks_tail.block0", planes[lvl] * 2, planes[lvl])
+            block(f"{u}blocks_tail.block1", planes[lvl], planes[lvl])
+
+    sd["decoder.input_proj.0.weight"] = w(d_model, planes[0])
+    sd["decoder.input_proj.0.bias"] = w(d_model)
+    sd["decoder.input_proj.2.weight"] = w(d_model, d_model)
+    sd["decoder.input_proj.2.bias"] = w(d_model)
+    for i in range(layers):
+        attn = f"decoder.self_attn_layers.{i}"
+        sd[f"{attn}.attn.in_proj_weight"] = w(3 * d_model, d_model)
+        sd[f"{attn}.attn.in_proj_bias"] = w(3 * d_model)
+        sd[f"{attn}.attn.out_proj.weight"] = w(d_model, d_model)
+        sd[f"{attn}.attn.out_proj.bias"] = w(d_model)
+        sd[f"{attn}.norm.weight"] = w(d_model)
+        sd[f"{attn}.norm.bias"] = w(d_model)
+        ffn = f"decoder.ffn_layers.{i}"
+        sd[f"{ffn}.net.0.weight"] = w(4 * d_model, d_model)
+        sd[f"{ffn}.net.0.bias"] = w(4 * d_model)
+        sd[f"{ffn}.net.3.weight"] = w(d_model, 4 * d_model)
+        sd[f"{ffn}.net.3.bias"] = w(d_model)
+        sd[f"{ffn}.norm.weight"] = w(d_model)
+        sd[f"{ffn}.norm.bias"] = w(d_model)
+    sd["decoder.out_norm.weight"] = w(d_model)
+    sd["decoder.out_norm.bias"] = w(d_model)
+    sd["decoder.outs_cls.0.weight"] = w(d_model, d_model)
+    sd["decoder.outs_cls.0.bias"] = w(d_model)
+    sd["decoder.outs_cls.2.weight"] = w(n_cls, d_model)
+    sd["decoder.outs_cls.2.bias"] = w(n_cls)
+    sd["decoder.out_bboxes.linear.weight"] = w(8, d_model)
+    sd["decoder.out_bboxes.linear.bias"] = w(8)
+    return sd

@@ -1,16 +1,26 @@
-"""Model and dataset construction, and the evaluation loop.
+"""Model and dataset construction, the training loop and the evaluation loop.
 
 The port of the JAX package's ``train/loop.py`` (``build_model``,
-``build_datasets``, ``evaluate``): per-dataset validation over the eval
-loader's size-sorted, capacity-bucketed groups, the forward and
-post-processing on the card, and indoor mAP on the host. The training loop
-(``train``) comes with checkpoints.
+``build_datasets``, ``train``, ``evaluate``), in one process on one card:
+  * ``train``: epochs over the mixed-dataset ``TrainLoader``, a log line per
+    interval (loss, its EMA, lr, s/step, scenes/s, ETA) with a warning when
+    collate dropped inputs, checkpoints with keep-last-k and resume, and
+    validation on the epochs of ``_val_epochs`` (every 16, then every epoch
+    of the last 16). Losses stay on the card between log lines: one read per
+    interval, and one per epoch for its mean;
+  * ``evaluate``: per-dataset validation over the eval loader's
+    size-sorted, capacity-bucketed groups, the forward and post-processing
+    on the card, and indoor mAP on the host.
+Every interval, epoch, checkpoint, resume, ``load_from`` and validation line
+carries its numbers as the log record's ``train_stats`` attribute (a dict
+with "kind"), and ``evaluate`` its per-dataset numbers as ``eval_stats``.
 """
 from __future__ import annotations
 
 import collections
 import copy
 import logging
+import os
 import statistics
 import time
 
@@ -20,15 +30,21 @@ import torch.distributed as dist
 
 from ..core.class_table import build_class_table
 from ..core.config import ModelConfig
-from ..core.experiment import ExperimentConfig
+from ..core.experiment import ExperimentConfig, resolve_steps_per_epoch
 from ..data.dataset_specs import DEFAULT_LABEL_MAPPINGS
-from ..data.datasets import IndoorDataset
-from ..data.loader import EvalLoader
+from ..data.datasets import ConcatDataset, IndoorDataset
+from ..data.loader import EvalLoader, TrainLoader
 from ..data.pipelines import test_pipeline, train_pipeline
+from ..data.telemetry import DROPS
 from ..device import resolve_device
 from ..models.detector import UniDet3D
 from ..models.postprocess import predict_batch
+from ..parallel.train_step import make_train_step
+from ..weights import seeded_init_
+from .checkpoint import CheckpointManager, merge_by_prefix, restore_params
 from .metric import IndoorMetric
+from .optim import make_optimizer
+from .profiling import log_memory_stats
 
 log = logging.getLogger("unidet3d_tpu_torch")
 
@@ -71,6 +87,142 @@ def build_datasets(exp: ExperimentConfig, split: str):
             )
         )
     return out
+
+
+def _val_epochs(exp: ExperimentConfig) -> set:
+    """The epochs (from 1) after which train() validates: every
+    val_interval_epochs, and each of the last val_last_epochs."""
+    every = set(range(exp.val_interval_epochs, exp.epochs + 1, exp.val_interval_epochs))
+    every |= set(range(max(1, exp.epochs - exp.val_last_epochs + 1), exp.epochs + 1))
+    return every
+
+
+def _stats(kind: str, **numbers) -> dict:
+    return {"train_stats": dict(kind=kind, **numbers)}
+
+
+def _one_process() -> None:
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
+            dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "train() runs in one process on one card; data parallelism (DDP with "
+            "masked SyncBN) is the next slice of the port (ROADMAP Queue 1 item 3)")
+
+
+def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
+    """Trains `exp` on `device` ("cuda" unless the caller asks for "cpu"),
+    writing checkpoints under ``exp.work_dir/checkpoints``; returns the model
+    and its ClippedAdamW.
+
+    The weights start from ``seeded_init_(model, exp.seed)``; with
+    ``exp.load_from`` every tensor under ``exp.load_prefix`` comes from that
+    state dict (``merge_by_prefix``, raising when none matches); `resume`
+    ("auto": the latest step, or a step number) then restores weights and
+    optimizer strictly and training goes on from epoch step //
+    steps_per_epoch + 1. As in the JAX loop, the query / dropout generator
+    starts at seed + 1 and the loader at its batch 1 in every run, resumed or
+    not (the JAX loop draws batch 0 to initialise its state)."""
+    _one_process()
+    device = resolve_device(device)
+    os.makedirs(exp.work_dir, exist_ok=True)
+    model, _ = build_model(exp, device)
+    log.info("device=%s%s", device,
+             f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+    train_sets = build_datasets(exp, "train")
+    if not train_sets:
+        raise ValueError("no training datasets configured")
+    concat = ConcatDataset(train_sets)
+    exp = resolve_steps_per_epoch(exp, len(concat))
+    log.info("steps_per_epoch=%d (dataset %d scenes, bs %d)",
+             exp.steps_per_epoch, len(concat), exp.batch_size)
+    seeded_init_(model, exp.seed)
+    optimizer = make_optimizer(
+        model.parameters(), base_lr=exp.lr, weight_decay=exp.weight_decay,
+        total_steps=exp.total_steps, power=exp.lr_power, clip_norm=exp.clip_norm)
+    if exp.load_from:
+        model.load_state_dict(merge_by_prefix(
+            model.state_dict(), restore_params(exp.load_from), exp.load_prefix))
+        log.info("initialized %s from %s", exp.load_prefix, exp.load_from,
+                 extra=_stats("load_from", prefix=exp.load_prefix, path=exp.load_from))
+    mngr = CheckpointManager(os.path.join(exp.work_dir, "checkpoints"), exp.ckpt_max_keep)
+    step = 0
+    if resume:
+        restored = mngr.restore(model, optimizer, None if resume == "auto" else int(resume))
+        if restored is not None:
+            step = restored
+            log.info("resumed from step %d", step, extra=_stats("resume", step=step))
+    start_epoch = step // exp.steps_per_epoch
+    if start_epoch >= exp.epochs:
+        return model, optimizer
+
+    step_fn = make_train_step(model, exp.model, optimizer)
+    val_epochs = _val_epochs(exp)
+    generator = torch.Generator(device=device).manual_seed(exp.seed + 1)
+    DROPS.reset()
+    loader = TrainLoader(concat, exp.model, exp.batch_size, seed=exp.seed, device=device,
+                         start=1)
+    ema = None  # loss EMA for the interval lines
+    try:
+        for epoch in range(start_epoch + 1, exp.epochs + 1):
+            t0 = t_int = time.time()
+            losses = []
+            for it in range(1, exp.steps_per_epoch + 1):
+                tb = next(loader)
+                metrics = step_fn(tb.batch, tb.gt, tb.pack, generator,
+                                  host_dataset_ids=tb.host[0].dataset_ids)
+                losses.append(metrics["loss"])
+                step += 1
+                if it % exp.log_interval == 0 or it == exp.steps_per_epoch:
+                    # The one read from the card per interval.
+                    loss = float(losses[-1])
+                    ema = loss if ema is None else 0.9 * ema + 0.1 * loss
+                    now = time.time()
+                    steps = it - (it - 1) // exp.log_interval * exp.log_interval
+                    spstep = (now - t_int) / steps
+                    t_int = now
+                    eta = int(max(exp.total_steps - step, 0) * spstep)
+                    lr = optimizer.schedule(optimizer.count - 1)
+                    log.info(
+                        "epoch %d iter %d/%d loss %.4f (ema %.4f) lr %.3e "
+                        "%.2f s/step %.2f scenes/s eta %d:%02d:%02d",
+                        epoch, it, exp.steps_per_epoch, loss, ema, lr, spstep,
+                        exp.batch_size / spstep, eta // 3600, eta % 3600 // 60, eta % 60,
+                        extra=_stats("interval", epoch=epoch, it=it, step=step, loss=loss,
+                                     ema=ema, lr=lr, steps=steps, seconds=spstep * steps))
+                    drops = DROPS.snapshot(reset=True)
+                    if drops:
+                        log.warning(
+                            "capacity drops this interval: %s — inputs exceeded "
+                            "static caps (see data/telemetry.py; raise the "
+                            "relevant ModelConfig capacity if unexpected)",
+                            DROPS.format(drops), extra=_stats("drops", step=step, **drops))
+            mean_loss = torch.stack(losses).mean().item()
+            dt = time.time() - t0
+            log.info("epoch %d/%d loss %.4f (%.1f s, %.2f scenes/s)", epoch, exp.epochs,
+                     mean_loss, dt, exp.steps_per_epoch * exp.batch_size / dt,
+                     extra=_stats("epoch", epoch=epoch, step=step, loss=mean_loss, seconds=dt))
+            log_memory_stats(f"epoch {epoch} ")
+            if epoch % exp.ckpt_interval_epochs == 0:
+                t = time.perf_counter()
+                path = mngr.save(step, model, optimizer)
+                dt = time.perf_counter() - t
+                size = os.path.getsize(path)
+                log.info("checkpoint step %d: %d bytes in %.3f s -> %s", step, size, dt, path,
+                         extra=_stats("checkpoint", step=step, bytes=size, seconds=dt))
+            if epoch in val_epochs:
+                t = time.perf_counter()
+                results = evaluate(exp, model, device=device)
+                dt = time.perf_counter() - t
+                for name, res in results.items():
+                    log.info("[val %s] mAP@0.25 %.4f mAP@0.50 %.4f", name,
+                             res.get("mAP_0.25", 0), res.get("mAP_0.50", 0))
+                log.info("validation after epoch %d: %.2f s", epoch, dt,
+                         extra=_stats("val", epoch=epoch, step=step, seconds=dt,
+                                      results=results))
+    finally:
+        loader.close()
+        mngr.close()
+    return model, optimizer
 
 
 def at_capacities(model: UniDet3D, cfg_b: ModelConfig) -> UniDet3D:

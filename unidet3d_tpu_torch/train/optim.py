@@ -7,7 +7,7 @@ The semantics are optax's, where they differ from PyTorch's helpers:
   * clipping scales the gradients by max_norm / |g| only when |g| >= max_norm
     (``clip_grad_norm_`` adds 1e-6 to the norm and always scales);
   * step t (from 0) uses the schedule's value at t, so the first step takes
-    the base learning rate.
+    the base learning rate; a restored ``state_dict`` carries t on.
 """
 from __future__ import annotations
 
@@ -56,6 +56,18 @@ class ClippedAdamW:
         self.adamw.step()
         self.count += 1
         return norm
+
+    def state_dict(self) -> dict:
+        """The step count (the schedule's position, as optax's restored
+        ``opt_state`` count) and the AdamW moments and per-parameter steps."""
+        return {"count": self.count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restores ``state_dict()``'s output: the next step uses the
+        schedule's value at the restored count. The moments land on the
+        parameters' device (``torch.optim.Optimizer.load_state_dict``)."""
+        self.adamw.load_state_dict(state["adamw"])
+        self.count = int(state["count"])
 
 
 def make_optimizer(
