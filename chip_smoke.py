@@ -122,7 +122,22 @@ Phases (any failure raises and the script exits non-zero):
      production widths through tools.convert_checkpoint.main, then
      tools.train.main with load_from and no epochs: every backbone.* tensor
      equal to the converted one, every decoder.* tensor to the seeded init;
- 23. the whole script's wall time, the `kernels` JSON line (per training
+ 23. [device-pack]: build_gridpack_device (the detector's fallback when
+     it is handed no pack) on phase 6's group staged on the card: every
+     table, row and n_valid equal to the native builder's, the builder's
+     ms beside phase 15's seconds, and, in deterministic mode, the forward
+     without a pack (37 K1, 6 K3) equal bit for bit to the native-pack
+     forward (run after phase 15);
+ 24. [ddp]: data parallelism over torch.distributed, 2 ranks spawned on the
+     one card over gloo, 4 of phase 13's 8 scenes each: launches per rank
+     per step, the deterministic step against the one-process step on the
+     8 scenes within 3x the card's run-to-run noise (loss, every gradient,
+     the running statistics), parameters bit-equal across ranks after 2
+     steps, step ms, the gradient all-reduce's ms and each rank's peak
+     memory; then tools.train.main in both ranks (1 epoch x 2 steps,
+     validation on phase 17's sets): one checkpoint written by rank 0,
+     equal models, equal gathered metric dicts (run after phase 22);
+ 25. the whole script's wall time, the `kernels` JSON line (per training
      step of phase 13; the probe's modes per probe call), the card's name
      and power limit, and the final JSON line.
 Times are CUDA-event means (the conv kernels per shape: the median of 5 such
@@ -132,9 +147,11 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import logging
 import os
+import socket
 import statistics
 import sys
 import tempfile
@@ -142,6 +159,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from unidet3d_tpu_torch.core.class_table import build_class_table
@@ -187,7 +205,12 @@ from unidet3d_tpu_torch.ops.attention import (
     flash_attention_dkv_cuda,
     flash_attention_dq_cuda,
 )
-from unidet3d_tpu_torch.ops.gridpack import build_gridpack_host, build_gridpack_numpy
+from unidet3d_tpu_torch.ops.gridpack import (
+    build_gridpack_device,
+    build_gridpack_host,
+    build_gridpack_numpy,
+    quantize_points_device,
+)
 from unidet3d_tpu_torch.ops.nms import pairwise_iou_aa, pairwise_iou_rotated
 from unidet3d_tpu_torch.ops.probe_conv import MODES as PROBE_MODES
 from unidet3d_tpu_torch.ops.probe_conv import probe_conv_cuda
@@ -199,6 +222,12 @@ from unidet3d_tpu_torch.ops.subm_conv_cuda import (
     subm_conv_wgrad_cuda,
     wgrad_smem,
     wgrad_tile,
+)
+from unidet3d_tpu_torch.parallel.distributed import (
+    average_gradients,
+    broadcast_module,
+    destroy,
+    maybe_initialize,
 )
 from unidet3d_tpu_torch.parallel.train_step import make_train_step
 from unidet3d_tpu_torch.tools import convert_checkpoint
@@ -1091,9 +1120,11 @@ def packs_equal(mine, ref) -> bool:
 def phase_native_pack(groups, card):
     """The native rulebook builder against the numpy builder on collated
     groups ([(tag, samples)]): every table equal on every row, and each
-    builder's seconds (native on one thread and on all cores)."""
+    builder's seconds (native on one thread and on all cores), which it
+    returns by tag."""
     cfg = default_config()
     cores = os.cpu_count()
+    seconds = {}
     for tag, samples in groups:
         batch, _, _ = collate(samples, cfg, build_rulebooks=False)
         secs = {}
@@ -1113,6 +1144,8 @@ def phase_native_pack(groups, card):
               f"native tables equal to numpy's on every array, row and n_valid; seconds "
               + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
               + f" (os.cpu_count() {cores}) | {card}")
+        seconds[tag] = secs
+    return seconds
 
 
 def info_scene(ds, name, n_points, seed):
@@ -1508,7 +1541,7 @@ from unidet3d_tpu_torch.core.experiment import DatasetSpec, ExperimentConfig
 def get_config():
     return ExperimentConfig(
         model=default_config(), batch_size={batch}, epochs={epochs}, steps_per_epoch={steps},
-        log_interval=2, ckpt_interval_epochs=1, ckpt_max_keep=1, val_interval_epochs=2,
+        log_interval=2, ckpt_interval_epochs=1, ckpt_max_keep=1, val_interval_epochs={val_every},
         val_last_epochs=0, eval_batch_size={eval_batch}, seed=0, work_dir={work!r},
         datasets=(
             DatasetSpec("scannet", {scannet!r}, ann_train="infos_train.pkl",
@@ -1564,6 +1597,7 @@ def phase_train_cli(card, root, loader_sustained):
     cfg_path = os.path.join(root, "train_cli_config.py")
     with open(cfg_path, "w") as f:
         f.write(CLI_CONFIG.format(batch=TRAIN_BATCH, epochs=CLI_EPOCHS, steps=CLI_STEPS,
+                                  val_every=CLI_EPOCHS,
                                   eval_batch=EVAL_BATCH, work=os.path.join(root, "work"),
                                   **{("arkit" if ds == ARKIT else n): os.path.join(root, n)
                                      for ds, n in names.items()}))
@@ -1724,6 +1758,326 @@ def phase_load_from(card, root, cli, table):
           f"decoder.* tensors equal to seeded_init_(seed 0); no kernel launched | {card}")
 
 
+
+# [device-pack] and [ddp].
+DDP_WORLD = 2  # ranks on the one card, over gloo (NCCL refuses two ranks per card)
+DDP_CHECKED_STEPS = 2  # deterministic steps: the first against one process, then params
+DDP_TIMED_STEPS = 2  # default-mode steps, timed
+DDP_CLI_STEPS = 2  # tools.train.main: 1 epoch of 2 steps, then validation
+DDP_TIMEOUT_S = 600
+# The DDP step against the one-process step, in units of the card's own
+# run-to-run noise: the worst difference between successive default-mode
+# one-process steps from the same state, over DDP_NOISE_STEPS of them.
+DDP_NOISE_FACTOR = 3.0
+DDP_NOISE_STEPS = 3
+
+
+def phase_device_pack(samples, table, card, native_s):
+    """[device-pack]: build_gridpack_device on [prod]'s 4-scene group, from
+    the batch staged on the card: every table, row and n_valid equal to the
+    native builder's, and the builder's ms (CUDA events, its one host read
+    included) beside [native-pack]'s seconds; then, in PyTorch's
+    deterministic mode, the forward without a pack (37 K1 and 6 K3
+    launches, counted) equal bit for bit to the forward on the native pack."""
+    cfg = default_config()
+    batch, _, pack_np = collate(samples, cfg)
+    b, p = to_device(batch, pack_np, "cuda")
+    caps = cfg.level_capacities(len(samples))
+
+    def build():
+        return build_gridpack_device(quantize_points_device(b.vox_src, b.valid),
+                                     b.valid.reshape(-1), caps)
+
+    pack, _ = build()
+    assert packs_equal(map_arrays(lambda x: x.cpu().numpy(), pack), pack_np), \
+        "[device-pack] device tables != native tables"
+    build_ms = cuda_ms(build, reps=5)
+    net = seeded_init_(UniDet3D(cfg, table, device="cuda"), 0)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            reset_counts()
+            out_d, aux_d = net(b, None)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            out_h, aux_h = net(b, p)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert launches == dict(NO_LAUNCHES, subm_conv=37, flash_attention=6), launches
+    differ = [name for name, x, y in zip((*out_d._fields, *aux_d._fields),
+                                         (*out_d, *aux_d), (*out_h, *aux_h))
+              if not torch.equal(x, y)]
+    assert not differ, f"[device-pack] pack=None forward != native-pack forward: {differ}"
+    print(f"[device-pack] build_gridpack_device on [prod]'s {len(samples)} scenes (voxels/level "
+          f"{list(pack.n_valid)}): every table, row and n_valid equal to the native builder's; "
+          f"{build_ms:.2f} ms per build (CUDA events, mean of 5, its one host read included) "
+          f"against [native-pack]'s " + ", ".join(f"{k} {v:.3f} s" for k, v in native_s.items())
+          + f" | {card}")
+    print(f"[device-pack] forward(batch, None), deterministic mode: launches K1 "
+          f"{launches['subm_conv']}, K3 {launches['flash_attention']}; outputs and aux equal "
+          f"bit for bit to the forward on the native pack | {card}")
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def one_process_step(batch, gt, pack, table, deterministic):
+    """[train]'s first step on the whole batch from seeded_init_(0), queries
+    from a CPU generator seeded 0: loss, grad_norm, gradients and running
+    statistics on the host."""
+    cfg = default_config()
+    net = seeded_init_(UniDet3D(cfg, table, device="cuda"), 0)
+    step = make_train_step(net, cfg, make_optimizer(net.parameters()))
+    b, p = to_device(batch, pack, "cuda")
+    g = gt_to_device(gt, "cuda")
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        m = step(b, g, p, torch.Generator().manual_seed(0), host_dataset_ids=batch.dataset_ids)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                grads={n: x.grad.to("cpu", copy=True) for n, x in net.named_parameters()},
+                stats={k: v.to("cpu", copy=True) for k, v in net.state_dict().items() if "running" in k})
+
+
+def stats_error(mine: dict, ref: dict) -> float:
+    """The worst max|a - b| / max|b| over the running statistics."""
+    return max((mine[k] - v).abs().max().item() / (v.abs().max().item() + 1e-12)
+               for k, v in ref.items())
+
+
+def ddp_rank(rank, port, out_dir, cli_cfg):
+    """One [ddp] rank: torchrun's environment, maybe_initialize (gloo: the
+    ranks share one card), its half of [train]'s batch (scenes regenerated
+    from their seeds), DDP_CHECKED_STEPS deterministic steps from rank 0's
+    seeded weights (broadcast) with the launches of each counted, then
+    DDP_TIMED_STEPS default-mode steps timed, the gradient all-reduce alone,
+    and tools.train.main on cli_cfg. Saves its numbers as rank<r>.pt."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(DDP_WORLD), RANK=str(rank), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(DDP_WORLD))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    created = maybe_initialize()
+    try:
+        assert created and dist.get_backend() == "gloo", dist.get_backend()
+        res = ddp_rank_body(rank, cli_cfg)
+        dist.barrier()
+    finally:
+        destroy(created)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def ddp_rank_body(rank, cli_cfg) -> dict:
+    cfg = default_config()
+    table = build_class_table(DATASETS_CLASSES)
+    n = TRAIN_BATCH // DDP_WORLD
+    datasets = [0 if i < TRAIN_BATCH // 2 else 2 for i in range(TRAIN_BATCH)]
+    batch, gt, pack = collate(train_scenes(n, SCENE_POINTS, rank * n, N_GTS,
+                                           datasets=datasets[rank * n:(rank + 1) * n]), cfg)
+    net = UniDet3D(cfg, table, device="cuda")
+    if rank == 0:
+        seeded_init_(net, 0)
+    broadcast_module(net)
+    opt = make_optimizer(net.parameters())
+    step = make_train_step(net, cfg, opt)
+    b, p = to_device(batch, pack, "cuda")
+    g = gt_to_device(gt, "cuda")
+    res = dict(launches=[], step_ms=[], allreduce_ms=[])
+    torch.cuda.reset_peak_memory_stats()
+
+    def counted_step():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        m = step(b, g, p, torch.Generator().manual_seed(0), host_dataset_ids=batch.dataset_ids)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        res["launches"].append(read_counts())
+        assert res["launches"][-1] == TRAIN_LAUNCHES, (rank, res["launches"][-1])
+        return m, ms
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for i in range(DDP_CHECKED_STEPS):
+            m, _ = counted_step()
+            if i == 0:
+                res.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                           grads={k: x.grad.to("cpu", copy=True) for k, x in net.named_parameters()},
+                           stats={k: v.to("cpu", copy=True) for k, v in net.state_dict().items()
+                                  if "running" in k})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    res["state"] = {k: v.to("cpu", copy=True) for k, v in net.state_dict().items()}
+    for _ in range(DDP_TIMED_STEPS):
+        dist.barrier()
+        res["step_ms"].append(counted_step()[1])
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average_gradients(opt.params)
+        torch.cuda.synchronize()
+        res["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["n_grad"] = sum(x.numel() for x in opt.params)
+    print(f"[ddp] rank {rank}: {n} scenes (datasets {batch.dataset_ids.tolist()}), step 1 "
+          f"loss {res['loss']:.6f}, default-mode steps {[round(x, 1) for x in res['step_ms']]} "
+          f"ms, gradient all-reduce {[round(x, 2) for x in res['allreduce_ms']]} ms, peak "
+          f"{res['peak_gib']:.1f} GiB", flush=True)
+    del net, opt, step, b, p, g
+    torch.cuda.empty_cache()
+
+    import unidet3d_tpu_torch.train.loop as loop_module
+
+    results = []
+    evaluate_fn = loop_module.evaluate
+
+    def recording_evaluate(*args, **kw):
+        results.append(evaluate_fn(*args, **kw))
+        return results[-1]
+
+    loop_module.evaluate = recording_evaluate
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with loop_records() as rec:
+        cli_net, cli_opt = train_cli.main([cli_cfg])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    groups = sum(st["groups"] for st in rec.eval)
+    per_step = cli_launches(launches, DDP_CLI_STEPS, groups)
+    assert per_step == TRAIN_LAUNCHES, (rank, per_step, launches, groups)
+    assert cli_opt.count == DDP_CLI_STEPS
+    res.update(cli_state={k: v.to("cpu", copy=True) for k, v in cli_net.state_dict().items()},
+               cli_results=results, cli_stats=rec.train, cli_groups=groups,
+               cli_scenes=sum(st["scenes"] for st in rec.eval),
+               cli_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return res
+
+
+def phase_ddp(batch, gt, pack, table, card, root):
+    """[ddp]: data parallelism over torch.distributed on the one card, 2
+    ranks over gloo (which stages CUDA tensors through host memory; NCCL
+    refuses two ranks on one card), spawned from this process.
+    The one-process reference first: [train]'s batch, one step from
+    seeded_init_(0) in deterministic mode, and DDP_NOISE_STEPS default-mode
+    steps whose differences are the card's run-to-run noise. Then the ranks, 4 scenes
+    each: launches per rank per step (37/36/37/6/6/6); the deterministic
+    step's loss, every gradient and the running statistics against the
+    one-process step within DDP_NOISE_FACTOR x that noise; the parameters
+    bit-equal across ranks after 2 steps; step times, the gradient
+    all-reduce's ms and each rank's peak memory. Then tools.train.main in
+    both ranks (1 epoch of 2 steps at the full config on [loader-train]'s
+    on-disk sets, validation on [eval-loop]'s): one checkpoint, written by
+    rank 0; equal models; equal metric dicts."""
+    # With a level at capacity the ranks would drop other voxels than one
+    # process does: different inputs.
+    caps = default_config().level_capacities(len(batch.dataset_ids))
+    assert all(n < c for n, c in zip(pack.n_valid, caps)), (pack.n_valid, caps)
+    noisy = [one_process_step(batch, gt, pack, table, False) for _ in range(DDP_NOISE_STEPS)]
+    ref = one_process_step(batch, gt, pack, table, True)
+    pairs = list(zip(noisy, noisy[1:]))
+    noise = dict(loss=max(abs(a["loss"] - b["loss"]) for a, b in pairs),
+                 grads=[r for a, b in pairs for r in grad_ratios(a["grads"], b["grads"])],
+                 stats=max(stats_error(a["stats"], b["stats"]) for a, b in pairs))
+    del noisy, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    names = {0: "scannet", 2: "multiscan", ARKIT: "arkitscenes"}
+    cli_cfg = os.path.join(root, "ddp_config.py")
+    with open(cli_cfg, "w") as f:
+        f.write(CLI_CONFIG.format(batch=TRAIN_BATCH, epochs=1, steps=DDP_CLI_STEPS, val_every=1,
+                                  eval_batch=EVAL_BATCH, work=os.path.join(root, "ddp_work"),
+                                  **{("arkit" if ds == ARKIT else n): os.path.join(root, n)
+                                     for ds, n in names.items()}))
+    out_dir = os.path.join(root, "ddp_ranks")
+    os.makedirs(out_dir)
+    t0 = time.time()
+    ctx = torch.multiprocessing.spawn(ddp_rank, args=(free_port(), out_dir, cli_cfg),
+                                      nprocs=DDP_WORLD, join=False)
+    try:
+        while not ctx.join(timeout=10):
+            if time.time() - t0 > DDP_TIMEOUT_S:
+                raise TimeoutError(f"[ddp] ranks still running after {DDP_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    wall = time.time() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(DDP_WORLD)]
+
+    # The DDP step against the one-process step.
+    r0 = ranks[0]
+    assert all(r["loss"] == r0["loss"] and r["grad_norm"] == r0["grad_norm"] for r in ranks)
+    loss_err = abs(r0["loss"] - ref["loss"])
+    loss_bound = DDP_NOISE_FACTOR * max(noise["loss"], 1e-6 * abs(ref["loss"]))
+    vs_one = grad_ratios(r0["grads"], ref["grads"])
+    worst = {part: max(r for r, n in vs_one if n.startswith("backbone.") == (part == "backbone"))
+             for part in ("backbone", "rest")}
+    noise_worst = {part: max(r for r, n in noise["grads"]
+                             if n.startswith("backbone.") == (part == "backbone"))
+                   for part in ("backbone", "rest")}
+    stats_err = stats_error(r0["stats"], ref["stats"])
+    stats_bound = DDP_NOISE_FACTOR * max(noise["stats"], 1e-6)
+    print(f"[ddp] {DDP_WORLD} ranks x {TRAIN_BATCH // DDP_WORLD} scenes on one card over gloo, "
+          f"the full config: launches per rank per step "
+          + ", ".join(f"{k} {r0['launches'][0][k]}" for k in COUNTERS)
+          + f" (asserted on every step of both ranks) | {card}")
+    print(f"[ddp] step 1, deterministic, against one process on the {TRAIN_BATCH} scenes: loss "
+          f"{r0['loss']:.6f} vs {ref['loss']:.6f} (|diff| {loss_err:.3g}; {DDP_NOISE_STEPS} "
+          f"default-mode one-process steps differ by up to {noise['loss']:.3g}), grad_norm {r0['grad_norm']:.5f} vs "
+          f"{ref['grad_norm']:.5f}; worst gradient error / bound (backbone: norm, "
+          f"{BACKBONE_RTOL:g}; rest: max, {HEAD_RTOL:g}) " + ", ".join(
+              f"{k} {worst[k]:.3f} (noise {noise_worst[k]:.3f})" for k in worst)
+          + f"; running statistics worst max|diff|/max {stats_err:.3g} (noise "
+          f"{noise['stats']:.3g}); each within {DDP_NOISE_FACTOR:g}x the noise | {card}")
+    assert loss_err <= loss_bound, (loss_err, loss_bound)
+    for part in worst:
+        assert worst[part] <= DDP_NOISE_FACTOR * max(noise_worst[part], 1e-3), \
+            (part, worst[part], noise_worst[part], vs_one[:5])
+    assert stats_err <= stats_bound, (stats_err, stats_bound)
+    unequal = [k for k, v in r0["state"].items() if not torch.equal(v, ranks[1]["state"][k])]
+    assert not unequal, f"[ddp] ranks differ after {DDP_CHECKED_STEPS} steps: {unequal[:5]}"
+    print(f"[ddp] after {DDP_CHECKED_STEPS} steps every parameter and running statistic "
+          f"({len(r0['state'])} tensors) bit-equal across ranks | {card}")
+    for r, res in enumerate(ranks):
+        print(f"[ddp] rank {r}: default-mode step {statistics.median(res['step_ms']):.1f} ms "
+              f"(median of {DDP_TIMED_STEPS}; gloo on CUDA tensors blocks the host per "
+              f"collective: no measure of NCCL on {DDP_WORLD} cards), gradient all-reduce "
+              f"({res['n_grad']} fp32 values) {statistics.median(res['allreduce_ms']):.2f} ms, "
+              f"peak "
+              f"max_memory_allocated {res['peak_gib']:.1f} GiB (steps), "
+              f"{res['cli_peak_gib']:.1f} GiB (tools.train.main) | {card}")
+
+    # tools.train.main in both ranks.
+    ckpts = sorted(os.listdir(os.path.join(root, "ddp_work", "checkpoints")))
+    assert ckpts == [f"{DDP_CLI_STEPS}.pth"], ckpts
+    writers = [r for r, res in enumerate(ranks)
+               if any(st["kind"] == "checkpoint" for st in res["cli_stats"])]
+    assert writers == [0], writers
+    unequal = [k for k, v in r0["cli_state"].items()
+               if not torch.equal(v, ranks[1]["cli_state"][k])]
+    assert not unequal, f"[ddp] tools.train.main: models differ across ranks: {unequal[:5]}"
+    assert len(r0["cli_results"]) == 1 and r0["cli_results"] == ranks[1]["cli_results"]
+    (val,) = [st for st in r0["cli_stats"] if st["kind"] == "val"]
+    assert val["results"] == r0["cli_results"][0]
+    print(f"[ddp] tools.train.main in both ranks: 1 epoch x {DDP_CLI_STEPS} steps, global batch "
+          f"{TRAIN_BATCH}, launches per step 37/36/37/6/6/6 in each rank (its validation "
+          f"forwards taken out); checkpoints {ckpts}, written by rank 0 only; models equal "
+          f"across ranks; validation on {[res['cli_scenes'] for res in ranks]} scenes in "
+          f"{[res['cli_groups'] for res in ranks]} groups per rank, gathered: equal metric dicts "
+          f"({map_line(val['results'])}); the whole phase {wall:.1f} s | {card}")
+    return {name: r0["launches"][0][name] for name in COUNTERS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip smoke needs the card",
@@ -1771,7 +2125,8 @@ def main() -> int:
         train_scenes(TRAIN_BATCH, SCENE_POINTS, 0, N_GTS, datasets=ROT_TRAIN_DATASETS), cfg)
     phase_train(rot_batch, rot_gt, rot_pack, time.time() - t0, table, card, tag="train-rot",
                 steps=ROT_TRAIN_STEPS)
-    phase_native_pack([("prod group", samples), ("train batch", train_samples)], card)
+    native_s = phase_native_pack([("prod group", samples), ("train batch", train_samples)], card)
+    phase_device_pack(samples, table, card, native_s["prod group"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
         loader_sustained = phase_loader_train(table, card, root)
         phase_eval_loop(table, card, root)
@@ -1781,6 +2136,8 @@ def main() -> int:
         phase_resume(card, cli)
         phase_load_from(card, root, cli, table)
         del cli
+        ddp_launches = phase_ddp(batch, gt, pack, table, card, root)
+    assert ddp_launches == {name: launches[name] for name in COUNTERS}, ddp_launches
 
     sources = {
         "subm_conv": ("unidet3d_tpu_torch/csrc/subm_conv.cu",
@@ -1824,7 +2181,9 @@ def main() -> int:
           "launches from one run of the probe's modes, every number per probe call "
           "(one 131,072-point scene, level 0, 32->32, bf16; bound: the bytes over 3.35 TB/s "
           "against the operations the mode's function needs over 989 TFLOP/s bf16; "
-          "library: index_select+mm, embedding_bag, einsum, einsum)")
+          "library: index_select+mm, embedding_bag, einsum, einsum). Also counted and "
+          "asserted on their own paths: [ddp] the same launches per rank per step, "
+          "[device-pack] 37 K1 and 6 K3 in the forward without a pack")
     print(f"[time] the whole script: {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)

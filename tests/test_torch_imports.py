@@ -37,7 +37,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "unidet3d_tpu_torch.models.detector" in report["imported"]
     assert "unidet3d_tpu_torch.tools.probe_conv_bottleneck" in report["imported"]
     for name in ("tools.train", "tools.test", "tools.convert_checkpoint", "train.checkpoint",
-                 "train.profiling", "configs.unidet3d_joint", "configs.unidet3d_scannet"):
+                 "train.profiling", "configs.unidet3d_joint", "configs.unidet3d_scannet",
+                 "parallel.distributed", "ops.keys", "ops.voxelize", "ops.pyramid"):
         assert f"unidet3d_tpu_torch.{name}" in report["imported"], name
     assert report["bad"] == []
 

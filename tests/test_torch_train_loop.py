@@ -285,8 +285,11 @@ def test_load_from_changes_only_the_backbone(roots, tmp_path):
 
 
 def test_train_runs_in_one_process_only(roots, tmp_path, monkeypatch):
+    """Without a process group train() runs in one process only: launched as
+    one of several ranks (WORLD_SIZE > 1) before the group is joined, it
+    raises instead of training alone."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(RuntimeError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(RuntimeError, match="maybe_initialize"):
         loop.train(experiment(roots, tmp_path), device="cpu")
 
 

@@ -28,9 +28,11 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..core.boxes import boxes_to_corner_format
+from ..parallel.distributed import world_size
 from .iou_losses import axis_aligned_diou_loss, rotated_diou_3d_loss
 
 INF = 1e8
@@ -236,31 +238,47 @@ def criterion(
     non_object_weight: float = 0.1,
     rotated_scenes: Sequence[int] | None = None,
 ) -> torch.Tensor:
-    """Total detection loss over all decoder output sets (one card).
+    """Total detection loss over all decoder output sets.
 
     `rotated_scenes` are the indices of the scenes `rotated` marks, as host
     ints (``detection_loss`` takes them from the collated dataset ids).
     Given, the criterion reads nothing back from the card; left None, it
-    reads `rotated` (a wait for the card when it lies there)."""
+    reads `rotated` (a wait for the card when it lies there).
+
+    Under a process group of more than one rank (data parallelism) the box
+    loss's scene mean is taken over the global batch, as under the JAX
+    package's ``psum``: the counts of scenes with matched pairs of every
+    output set are summed over the group in one all-reduce, issued by every
+    rank whatever its scenes, and each local term is scaled by the world
+    size, so that the group's mean of the local losses (and of their
+    gradients) is the one-process loss on the global batch."""
     if rotated_scenes is None:
         rotated_scenes = [i for i, r in enumerate(rotated.tolist()) if r]
     rotated_scenes = tuple(rotated_scenes)
     # The matcher's box costs of every output set in one pass: they carry no
     # gradient and do not depend on an earlier set's matching.
     costs = pairwise_costs_batch(boxes, gt.boxes, rotated_scenes)
+    layers = [
+        layer_loss_scene(cls_logits[layer], boxes[layer], query_valid, gt, topk,
+                         non_object_weight, costs[layer], rotated, rotated_scenes)
+        for layer in range(cls_logits.shape[0])
+    ]
+    has_pairs = [n_pairs > 0 for _, _, n_pairs in layers]
+    n_dev = world_size()
+    # (L,) counts of scenes with pairs: outside every data-dependent branch,
+    # since a collective that some rank skips never returns.
+    global_has = torch.stack([h.sum() for h in has_pairs])
+    if n_dev > 1:
+        global_has = global_has.float()
+        dist.all_reduce(global_has)
     total = cls_logits.new_zeros(())
-    for layer in range(cls_logits.shape[0]):
-        cls_l, bbox_sum, n_pairs = layer_loss_scene(
-            cls_logits[layer], boxes[layer], query_valid, gt, topk,
-            non_object_weight, costs[layer], rotated, rotated_scenes,
-        )
+    for (cls_l, pair_sum, n_pairs), has, n_has in zip(layers, has_pairs, global_has):
         cls_loss = (dataset_weights * cls_l).mean()
-        # Scene mean over the scenes that have matched pairs.
-        has_pairs = n_pairs > 0
-        scene_bbox = dataset_weights * bbox_sum / n_pairs.clamp(min=1)
-        bbox_loss = (
-            torch.where(has_pairs, scene_bbox, 0.0).sum()
-            / has_pairs.sum().clamp(min=1)
-        )
+        # Scene mean over the (global batch's) scenes that have matched pairs.
+        scene_bbox = dataset_weights * pair_sum / n_pairs.clamp(min=1)
+        bbox_sum = torch.where(has, scene_bbox, 0.0).sum()
+        if n_dev > 1:
+            bbox_sum = n_dev * bbox_sum
+        bbox_loss = bbox_sum / n_has.clamp(min=1)
         total = total + loss_weight[0] * cls_loss + loss_weight[1] * bbox_loss
     return total

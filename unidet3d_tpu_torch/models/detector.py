@@ -1,9 +1,10 @@
 """UniDet3D detector: voxel mean -> sparse U-Net -> superpoint pooling ->
 transformer decoder, plus the ground-truth preparation and the loss.
 
-The port of the JAX package's ``models/detector.py`` on host-built
-rulebooks. Padding is handled with one-past-the-end sentinel ids that the
-segment reductions drop. Geometry frames follow the JAX package:
+The port of the JAX package's ``models/detector.py``, on host-built
+rulebooks or, handed none, on rulebooks it builds on the device. Padding is
+handled with one-past-the-end sentinel ids that the segment reductions
+drop. Geometry frames follow the JAX package:
 
   * eval: every superpoint slot is a query (Q = S), and superpoint centers
     are taken from the RAW points so that predictions land in the input
@@ -25,9 +26,10 @@ from ..core.class_table import ClassTable
 from ..core.config import ModelConfig
 from ..device import resolve_device
 from ..losses.criterion import SceneGT, criterion
-from ..ops.gridpack import GridPack
+from ..ops.gridpack import GridPack, build_gridpack_device, quantize_points_device
 from ..ops.segment import segment_mean, segment_sum
 from ..ops.sparse_conv import gather_rows
+from ..parallel.distributed import rank_world
 from .decoder import DecoderOutput, UniDecoder
 from .unet import UNetBackbone
 
@@ -114,18 +116,29 @@ class UniDet3D(nn.Module):
     def forward(
         self,
         batch: PointBatch,
-        pack: GridPack,
+        pack: GridPack | None,
         train: bool = False,
         generator: torch.Generator | None = None,
         query_noise: torch.Tensor | None = None,
     ):
         """Args:
-            batch, pack: a collated batch and its rulebooks on the device.
+            batch: a collated batch on the device.
+            pack: its rulebooks on the device (the loaders build them on
+                the host with the native builder: the production path), or
+                None to build them here with ``build_gridpack_device`` (the
+                fallback; one host read, the levels' voxel counts).
             train: the training branch (masked batch moments, train frame,
                 random query selection).
-            generator: draws the (B, S) query-selection noise in training
-                (on its own device, then moved to the model's), then the
-                decoder's dropout masks when cfg.dropout > 0.
+            generator: draws the query-selection noise in training (on its
+                own device, then moved to the model's), then the decoder's
+                dropout masks when cfg.dropout > 0. The noise is drawn per
+                scene of the global batch: under a process group of W ranks
+                each rank draws the whole (B * W, S) tensor and keeps its
+                rows rank * B : (rank + 1) * B, so that W ranks of B scenes
+                select the queries that one process of B * W scenes does
+                (the JAX detector folds its key per global scene id). The
+                dropout masks are drawn at the local shapes, so with
+                cfg.dropout > 0 they depend on the world size, as in JAX.
             query_noise: (B, S) noise to use instead of drawing it.
         """
         cfg = self.cfg
@@ -138,6 +151,9 @@ class UniDet3D(nn.Module):
         pmin = torch.where(pmin >= BIG, 0.0, pmin)
 
         flat_valid = batch.valid.reshape(-1)
+        if pack is None:  # the device-side fallback
+            pack, _ = build_gridpack_device(quantize_points_device(batch.vox_src, batch.valid),
+                                            flat_valid, cfg.level_capacities(b))
         v0 = pack.capacity(0)
         # Voxel features: per-voxel mean of the point features.
         pinv = torch.where(flat_valid, pack.point_inverse, v0)
@@ -162,9 +178,10 @@ class UniDet3D(nn.Module):
             if query_noise is None:
                 if generator is None:
                     raise ValueError("train=True needs a generator or query_noise")
+                rank, world = rank_world()
                 query_noise = torch.rand(
-                    (b, s), generator=generator, device=generator.device
-                )
+                    (b * world, s), generator=generator, device=generator.device
+                )[rank * b:(rank + 1) * b]
             noise = torch.where(sp_valid, query_noise.to(sp_valid.device), BIG)
             # Valid superpoints first in a random order; a stable sort, as
             # jnp.argsort.

@@ -1,4 +1,4 @@
-"""Masked batch normalization for padded sparse features.
+"""Masked (sync) batch normalization for padded sparse features.
 
 The port of the JAX package's ``models/norm.py::MaskedBatchNorm``, eps 1e-4,
 momentum 0.1 (torch convention: new = (1 - m) * old + m * batch):
@@ -10,12 +10,19 @@ momentum 0.1 (torch convention: new = (1 - m) * old + m * batch):
     the batch, and the running statistics move towards them, the variance
     with the unbiased factor cnt / max(cnt - 1, 1).
 
-Synchronising the moments across cards (SyncBN) belongs to a later slice.
+In training under a process group of more than one rank (data parallelism,
+``parallel/distributed.py``) the count, sum and sum of squares are summed
+over the group in one differentiable all-reduce of 2C + 1 values before the
+moments are taken: the JAX package's ``psum`` over its mesh axis, so every
+rank normalises with the global batch's moments and keeps the same running
+statistics. A rank with no valid row still joins the all-reduce.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..parallel.distributed import all_reduce_sum, world_size
 
 
 class MaskedBatchNorm(nn.Module):
@@ -37,9 +44,15 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             m = mask.to(x.dtype)[:, None]
-            cnt = m.sum().clamp(min=1.0)
-            mean = (x * m).sum(0) / cnt
-            var = ((x * x * m).sum(0) / cnt - mean * mean).clamp(min=0.0)
+            cnt, s, ss = m.sum(), (x * m).sum(0), (x * x * m).sum(0)
+            if world_size() > 1:
+                c = x.shape[1]
+                cnt, s, ss = all_reduce_sum(
+                    torch.cat([cnt.reshape(1), s, ss])).split([1, c, c])
+                cnt = cnt[0]
+            cnt = cnt.clamp(min=1.0)
+            mean = s / cnt
+            var = (ss / cnt - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
                 mo = self.momentum

@@ -1,8 +1,11 @@
-"""GridPack: the sparse-conv rulebooks for one batch, built on the host.
+"""GridPack: the sparse-conv rulebooks for one batch.
 
 The port's copy of the numpy builder in the JAX package's ``ops/gridpack.py``
 (same semantics, bit for bit), the reference of the native builder
-(``native/rulebook.cc``) that ``build_gridpack_host`` runs.
+(``native/rulebook.cc``) that ``build_gridpack_host`` runs in the loaders:
+the production path. ``build_gridpack_device`` is the fallback that the
+detector runs when it is handed no pack (``UniDet3D.forward(batch, None)``):
+the same tables built on the device with PyTorch tensor ops.
 
 For each U-Net level l:
   * valid[l]: (V_l,) voxel validity; valid voxels are a prefix of the rows
@@ -20,6 +23,10 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import numpy as np
+import torch
+
+from .pyramid import build_pyramid
+from .voxelize import voxelize
 
 
 class GridPack(NamedTuple):
@@ -36,6 +43,36 @@ class GridPack(NamedTuple):
 
     def capacity(self, level: int) -> int:
         return self.valid[level].shape[0]
+
+
+def build_gridpack_device(bxyz, point_valid, capacities: Sequence[int]):
+    """GridPack construction on the device (the JAX package's
+    ``build_gridpack_device``): a stable sort, cumulative sums, scatters and
+    binary searches over int64 keys, no kernel of its own.
+
+    Args:
+        bxyz: (N, 4) int tensor (batch, x, y, z) of quantized coords.
+        point_valid: (N,) bool tensor.
+        capacities: the voxel capacity of each level.
+
+    Returns:
+        (GridPack of tensors on bxyz's device, the level-0 VoxelGrid, whose
+        counts average features). The tables equal build_gridpack_numpy's on
+        every row. Every level's n_valid is read to the host in one
+        ``.tolist()`` at the end, the builder's only wait for the device: the
+        conv kernels size their grids from it.
+    """
+    grid0, _ = voxelize(bxyz, point_valid, capacities[0])
+    pyr = build_pyramid(grid0, list(capacities))
+    n_valid = torch.stack([g.n_voxels for g in pyr.grids]).tolist()
+    return GridPack(
+        valid=tuple(g.valid for g in pyr.grids),
+        neighbors=pyr.neighbors,
+        parent=tuple(d.parent for d in pyr.ds),
+        offset_code=tuple(d.offset_code for d in pyr.ds),
+        point_inverse=grid0.inverse,
+        n_valid=tuple(n_valid),
+    ), grid0
 
 
 _SUBM_OFFSETS = np.array(
@@ -192,3 +229,15 @@ def quantize_points(vox_src: np.ndarray, valid: np.ndarray) -> np.ndarray:
     return np.concatenate(
         [bidx.reshape(-1, 1), icoords.reshape(-1, 3)], axis=1
     )
+
+
+def quantize_points_device(vox_src: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """quantize_points on the device, the same float32 arithmetic: (B, P, 3)
+    vox_src and (B, P) valid -> (B*P, 4) int32 (batch, x, y, z)."""
+    b, p, _ = vox_src.shape
+    vs = torch.where(valid[..., None], vox_src, 1e9)
+    pmin = vs.amin(dim=1, keepdim=True)
+    pmin = torch.where(pmin >= 1e9, 0.0, pmin)
+    icoords = torch.floor(vox_src - pmin).int().reshape(-1, 3)
+    scene = torch.arange(b, dtype=torch.int32, device=vox_src.device).repeat_interleave(p)
+    return torch.cat([scene[:, None], icoords], -1)

@@ -1,4 +1,5 @@
-"""Sparse convolutions over host-built rulebooks, in plain PyTorch.
+"""Sparse convolutions over GridPack rulebooks in plain PyTorch, and the
+rulebook builders of the device-side fallback.
 
 The port's counterparts of the JAX package's ``ops/sparse_conv.py``:
 
@@ -13,7 +14,11 @@ The port's counterparts of the JAX package's ``ops/sparse_conv.py``:
     offset-expanded input plus an ``index_add_`` (the JAX package leaves
     these to XLA too).
 
-Every function here is differentiable under autograd: none writes in place
+``build_subm_neighbors`` / ``build_downsample_map`` build one level's
+neighbor table and one transition's rulebook on the device from a sorted
+``VoxelGrid`` (``ops/voxelize.py``), as the JAX package's do.
+
+Every conv here is differentiable under autograd: none writes in place
 into a tensor that carries a gradient.
 
 Weight layouts: (27, Cin, Cout) with offset order (dx, dy, dz), dx-major, each
@@ -26,9 +31,13 @@ bf16 matmul.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from .keys import MAX_COORD, lookup_pair, pack_keys
 from .segment import segment_sum
+from .voxelize import VoxelGrid, voxelize
 
 
 def _with_zero_row(features: torch.Tensor) -> torch.Tensor:
@@ -186,3 +195,59 @@ def inverse_conv(
     n = v_in if n_valid is None else int(n_valid)
     g = gather_rows(features.float(), parent[:n])
     return _pad_rows(_offset_matmul(g, offset_code[:n], weights), v_in)
+
+
+# ---------------------------------------------------------------------------
+# Rulebooks on the device: the JAX package's builders, for GridPack's
+# device-side fallback (ops/gridpack.py::build_gridpack_device).
+# ---------------------------------------------------------------------------
+
+SUBM_OFFSETS = [
+    (dx, dy, dz)
+    for dx in (-1, 0, 1)
+    for dy in (-1, 0, 1)
+    for dz in (-1, 0, 1)
+]
+
+
+def build_subm_neighbors(grid: VoxelGrid) -> torch.Tensor:
+    """The (V, 27) int32 neighbor table of a sorted grid: entry [i, o] is the
+    row of voxel i's neighbor at offset o, or V (the sentinel) when it is
+    absent, out of range or i is not a valid row. All 27 offsets are looked
+    up in one binary search over a (V, 27) query; the center offset is the
+    identity."""
+    cap = grid.capacity
+    offs = torch.tensor([[0, *o] for o in SUBM_OFFSETS], dtype=torch.int64,
+                        device=grid.coords.device)
+    q = grid.coords.long()[:, None, :] + offs[None]  # (V, 27, 4)
+    in_range = ((q[..., 1:] >= 0) & (q[..., 1:] <= MAX_COORD)).all(-1)
+    ok = grid.valid[:, None] & in_range
+    idx, found = lookup_pair(grid.key, pack_keys(q.clamp(min=0), ok))
+    nbr = torch.where(found & ok, idx, cap).int()
+    center = SUBM_OFFSETS.index((0, 0, 0))
+    nbr[:, center] = torch.where(
+        grid.valid, torch.arange(cap, dtype=torch.int32, device=nbr.device), cap)
+    return nbr
+
+
+class DownsampleMap(NamedTuple):
+    """The rulebook from a grid to its 2x-downsampled parent grid.
+
+    grid: the coarse VoxelGrid; parent: (V_in,) int32 fine -> coarse row
+    (V_out, the sentinel, for invalid or dropped rows); offset_code: (V_in,)
+    int32 in [0, 8), ox * 4 + oy * 2 + oz from the fine coords' low bits."""
+
+    grid: VoxelGrid
+    parent: torch.Tensor
+    offset_code: torch.Tensor
+
+
+def build_downsample_map(grid: VoxelGrid, out_capacity: int) -> DownsampleMap:
+    """The coarse grid and the rulebook of a k=2 s=2 strided conv."""
+    coords = grid.coords
+    coarse = torch.cat([coords[:, :1], coords[:, 1:] >> 1], -1)
+    out_grid, _ = voxelize(coarse, grid.valid, out_capacity)
+    low = coords[:, 1:] & 1
+    offset_code = low[:, 0] * 4 + low[:, 1] * 2 + low[:, 2]
+    return DownsampleMap(grid=out_grid, parent=out_grid.inverse,
+                         offset_code=offset_code.int())

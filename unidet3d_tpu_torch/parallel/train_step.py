@@ -1,8 +1,17 @@
-"""The training step on one card, the port of the JAX package's
-``parallel/train_step.py::make_train_step`` without the mesh: forward in
-train mode, ``detection_loss``, backward (through the conv and attention
-backward kernels), global-norm clipping and AdamW. Data parallelism with
-masked SyncBN belongs to a later slice.
+"""The training step, the port of the JAX package's
+``parallel/train_step.py::make_train_step``: forward in train mode,
+``detection_loss``, backward (through the conv and attention backward
+kernels), global-norm clipping and AdamW.
+
+Under a process group of more than one rank (``parallel/distributed.py``)
+each rank runs the step on its own scenes of the global batch: the batch
+norms and the criterion sum their statistics over the group inside the
+forward and backward, and between the backward and the optimizer the
+gradients are averaged over the group and the loss is taken to the group's
+mean, as the JAX step's ``pmean``s do. The collectives of one step, in the
+order every rank issues them (at the production widths): 45 batch-norm
+forwards, the criterion's count, 45 batch-norm backwards, the gradient
+buffer, the loss.
 """
 from __future__ import annotations
 
@@ -12,6 +21,7 @@ from ..core.config import ModelConfig
 from ..models.detector import GTBatch, PointBatch, detection_loss
 from ..ops.gridpack import GridPack
 from ..train.optim import ClippedAdamW
+from .distributed import average_gradients, mean_over_group
 
 
 def make_train_step(model: torch.nn.Module, cfg: ModelConfig,
@@ -24,8 +34,8 @@ def make_train_step(model: torch.nn.Module, cfg: ModelConfig,
     collated batch's numpy dataset ids, tell the criterion its rotated
     scenes without a read from the card (``detection_loss``). The model's
     parameters, running statistics and the optimizer state are updated in
-    place. Both metrics are device scalars; grad_norm is taken before
-    clipping."""
+    place. Both metrics are device scalars, the group's mean loss and the
+    norm of the averaged gradient, taken before clipping."""
 
     def step(batch: PointBatch, gt: GTBatch, pack: GridPack,
              generator: torch.Generator | None = None,
@@ -36,7 +46,9 @@ def make_train_step(model: torch.nn.Module, cfg: ModelConfig,
         loss = detection_loss(cfg, out, aux, batch, gt, host_dataset_ids)
         optimizer.zero_grad()
         loss.backward()
+        average_gradients(optimizer.params)
+        loss = mean_over_group(loss.detach())
         grad_norm = optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": loss, "grad_norm": grad_norm}
 
     return step

@@ -8,6 +8,11 @@ Builds the model, restores the checkpoint strictly (the latest step unless
 ``name: mAP@0.25=... mAP@0.50=...`` line per dataset. ``--show`` and
 ``--show-dir`` need the visualisation package, which is not ported yet
 (ROADMAP Queue 1 item 5): they raise.
+
+Under torchrun (``torchrun --nproc_per_node N -m
+unidet3d_tpu_torch.tools.test ...``) every rank restores the same checkpoint
+on card LOCAL_RANK, evaluates a strided shard of each dataset, and the
+metric gathers the detections, so every rank prints the same numbers.
 """
 from __future__ import annotations
 
@@ -39,17 +44,22 @@ def main(argv=None) -> dict:
     exp = apply_overrides(exp, args.cfg_options)
 
     from ..device import resolve_device
+    from ..parallel.distributed import destroy, maybe_initialize, rank_device
     from ..train.checkpoint import CheckpointManager
     from ..train.loop import build_model, evaluate
 
-    device = resolve_device(args.device)
-    model, _ = build_model(exp, device)
-    step = CheckpointManager(args.checkpoint).restore(model, step=args.step)
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint found in {args.checkpoint}")
-    logging.getLogger("unidet3d_tpu_torch").info("restored step %d from %s", step,
-                                                 args.checkpoint)
-    results = evaluate(exp, model, device=device)
+    device = rank_device(resolve_device(args.device))
+    created = maybe_initialize()
+    try:
+        model, _ = build_model(exp, device)
+        step = CheckpointManager(args.checkpoint).restore(model, step=args.step)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found in {args.checkpoint}")
+        logging.getLogger("unidet3d_tpu_torch").info("restored step %d from %s", step,
+                                                     args.checkpoint)
+        results = evaluate(exp, model, device=device)
+    finally:
+        destroy(created)
     for name, res in results.items():
         print(
             f"{name}: mAP@0.25={res.get('mAP_0.25', 0):.4f} "

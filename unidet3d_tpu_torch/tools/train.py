@@ -10,6 +10,16 @@ port's own: ``unidet3d_tpu_torch/configs/``). Mixed precision is on by default
 fp32`` turns it off. It runs on the card; ``--device cpu`` runs the plain
 PyTorch versions on the CPU, and without a card and without that flag it
 raises.
+
+Data-parallel training, one process per card, on one host:
+
+  torchrun --nproc_per_node N -m unidet3d_tpu_torch.tools.train <config.py>
+
+(and with --nnodes / --node_rank / --master_addr across hosts, the work
+directory on a shared file system). The config's batch_size is the global
+batch; each rank trains on batch_size / N scenes of it on card LOCAL_RANK.
+The backend is NCCL when every local rank has a card of its own, gloo on the
+CPU or when ranks share a card (``parallel/distributed.py``).
 """
 from __future__ import annotations
 
@@ -47,9 +57,10 @@ def main(argv=None):
     # The config first, then the heavy imports (as the JAX CLI does).
     exp = load_experiment(args.config)
     from ..device import resolve_device
+    from ..parallel.distributed import destroy, maybe_initialize, rank_device
     from ..train.loop import train
 
-    device = resolve_device(args.device)
+    device = rank_device(resolve_device(args.device))
     exp = apply_overrides(exp, args.cfg_options)
     if args.work_dir:
         exp = dataclasses.replace(exp, work_dir=args.work_dir)
@@ -63,7 +74,11 @@ def main(argv=None):
             exp.lr, exp.lr * scale, exp.batch_size, exp.base_batch_size,
         )
         exp = dataclasses.replace(exp, lr=exp.lr * scale)
-    return train(exp, resume=args.resume, device=device)
+    created = maybe_initialize()
+    try:
+        return train(exp, resume=args.resume, device=device)
+    finally:
+        destroy(created)
 
 
 if __name__ == "__main__":

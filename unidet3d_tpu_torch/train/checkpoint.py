@@ -8,7 +8,8 @@ The port of the JAX package's ``train/checkpoint.py`` (orbax) over
     through a temporary name and ``os.replace``, so that a cut run never
     leaves a half file for ``--resume auto`` (orbax commits atomically too);
     it keeps the newest ``max_to_keep`` steps, as orbax's
-    ``CheckpointManagerOptions(max_to_keep=...)`` does;
+    ``CheckpointManagerOptions(max_to_keep=...)`` does; in data-parallel
+    training rank 0 writes and every rank restores the same file;
   * ``save_params`` / ``restore_params`` handle a plain state dict (the
     converter's output, ``load_from``'s input);
   * ``merge_by_prefix`` works over flat state-dict names and takes every
@@ -24,6 +25,8 @@ import os
 import re
 
 import torch
+
+from ..parallel.distributed import barrier, is_primary
 
 log = logging.getLogger("unidet3d_tpu_torch")
 
@@ -80,13 +83,20 @@ class CheckpointManager:
 
     def save(self, step: int, model: torch.nn.Module, optimizer) -> str:
         """Writes step `step`'s checkpoint (replacing one of the same step),
-        then removes all but the newest max_to_keep; returns its path."""
-        os.makedirs(self.directory, exist_ok=True)
+        then removes all but the newest max_to_keep; returns its path.
+
+        Under a process group only rank 0 writes and prunes (every rank holds
+        the same state), then every rank waits at a barrier, so that the
+        file is complete wherever the call returns (a shared file system is
+        assumed, as by the JAX loop and the reference's rank-0 torch.save)."""
         path = self.path(step)
-        _atomic_save({"step": int(step), "model": model.state_dict(),
-                      "optimizer": optimizer.state_dict()}, path)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
+        if is_primary():
+            os.makedirs(self.directory, exist_ok=True)
+            _atomic_save({"step": int(step), "model": model.state_dict(),
+                          "optimizer": optimizer.state_dict()}, path)
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+        barrier()
         return path
 
     def restore(self, model: torch.nn.Module, optimizer=None, step: int | None = None):

@@ -1,16 +1,22 @@
 """Model and dataset construction, the training loop and the evaluation loop.
 
 The port of the JAX package's ``train/loop.py`` (``build_model``,
-``build_datasets``, ``train``, ``evaluate``), in one process on one card:
+``build_datasets``, ``train``, ``evaluate``), in one process on one card
+or in one process per card under ``torch.distributed``:
   * ``train``: epochs over the mixed-dataset ``TrainLoader``, a log line per
     interval (loss, its EMA, lr, s/step, scenes/s, ETA) with a warning when
     collate dropped inputs, checkpoints with keep-last-k and resume, and
     validation on the epochs of ``_val_epochs`` (every 16, then every epoch
     of the last 16). Losses stay on the card between log lines: one read per
-    interval, and one per epoch for its mean;
+    interval, and one per epoch for its mean. In a process group each rank
+    trains on its share of the global batch (``parallel/distributed.py``);
+    rank 0 logs and writes the checkpoints;
   * ``evaluate``: per-dataset validation over the eval loader's
     size-sorted, capacity-bucketed groups, the forward and post-processing
-    on the card, and indoor mAP on the host.
+    on the card, and indoor mAP on the host. In a process group each rank
+    evaluates a strided shard of every dataset and the metric gathers; no
+    collective runs per group, since the buckets depend on each rank's
+    scenes (the JAX loop evaluates on a process-local mesh for this reason).
 Every interval, epoch, checkpoint, resume, ``load_from`` and validation line
 carries its numbers as the log record's ``train_stats`` attribute (a dict
 with "kind"), and ``evaluate`` its per-dataset numbers as ``eval_stats``.
@@ -26,7 +32,6 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..core.class_table import build_class_table
 from ..core.config import ModelConfig
@@ -39,6 +44,7 @@ from ..data.telemetry import DROPS
 from ..device import resolve_device
 from ..models.detector import UniDet3D
 from ..models.postprocess import predict_batch
+from ..parallel.distributed import broadcast_module, is_primary, local_batch_size, rank_world
 from ..parallel.train_step import make_train_step
 from ..weights import seeded_init_
 from .checkpoint import CheckpointManager, merge_by_prefix, restore_params
@@ -101,12 +107,10 @@ def _stats(kind: str, **numbers) -> dict:
     return {"train_stats": dict(kind=kind, **numbers)}
 
 
-def _one_process() -> None:
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
-            dist.is_available() and dist.is_initialized()):
-        raise RuntimeError(
-            "train() runs in one process on one card; data parallelism (DDP with "
-            "masked SyncBN) is the next slice of the port (ROADMAP Queue 1 item 3)")
+def log_primary(*args, **kw) -> None:
+    """log.info on rank 0 only (every rank when there is no group)."""
+    if is_primary():
+        log.info(*args, **kw)
 
 
 def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
@@ -121,20 +125,35 @@ def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
     optimizer strictly and training goes on from epoch step //
     steps_per_epoch + 1. As in the JAX loop, the query / dropout generator
     starts at seed + 1 and the loader at its batch 1 in every run, resumed or
-    not (the JAX loop draws batch 0 to initialise its state)."""
-    _one_process()
+    not (the JAX loop draws batch 0 to initialise its state).
+
+    In a process group (``parallel/distributed.py``, launched by torchrun)
+    every rank runs this loop on its card: exp.batch_size is the global
+    batch, each rank's loader draws its batch_size / world scenes from seed
+    + 7919 * rank (the JAX loop's fold), rank 0's weights are broadcast once
+    they are initialised, loaded or restored, the step averages over the
+    group, rank 0 writes the checkpoints and the log lines, and every rank
+    validates its shard of each dataset (``evaluate`` gathers the metric)."""
     device = resolve_device(device)
+    rank, world = rank_world()
+    launched = int(os.environ.get("WORLD_SIZE", "1"))
+    if launched > 1 and world == 1:
+        raise RuntimeError(
+            f"WORLD_SIZE={launched} but no process group: call "
+            "parallel.distributed.maybe_initialize() before train() (tools/train.py does)")
+    local_bs = local_batch_size(exp.batch_size)
     os.makedirs(exp.work_dir, exist_ok=True)
     model, _ = build_model(exp, device)
-    log.info("device=%s%s", device,
-             f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+    log.info("device=%s%s, rank %d of %d", device,
+             f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "",
+             rank, world)
     train_sets = build_datasets(exp, "train")
     if not train_sets:
         raise ValueError("no training datasets configured")
     concat = ConcatDataset(train_sets)
     exp = resolve_steps_per_epoch(exp, len(concat))
-    log.info("steps_per_epoch=%d (dataset %d scenes, bs %d)",
-             exp.steps_per_epoch, len(concat), exp.batch_size)
+    log.info("steps_per_epoch=%d (dataset %d scenes, bs %d, %d per rank)",
+             exp.steps_per_epoch, len(concat), exp.batch_size, local_bs)
     seeded_init_(model, exp.seed)
     optimizer = make_optimizer(
         model.parameters(), base_lr=exp.lr, weight_decay=exp.weight_decay,
@@ -151,6 +170,7 @@ def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
         if restored is not None:
             step = restored
             log.info("resumed from step %d", step, extra=_stats("resume", step=step))
+    broadcast_module(model)
     start_epoch = step // exp.steps_per_epoch
     if start_epoch >= exp.epochs:
         return model, optimizer
@@ -159,8 +179,8 @@ def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
     val_epochs = _val_epochs(exp)
     generator = torch.Generator(device=device).manual_seed(exp.seed + 1)
     DROPS.reset()
-    loader = TrainLoader(concat, exp.model, exp.batch_size, seed=exp.seed, device=device,
-                         start=1)
+    loader = TrainLoader(concat, exp.model, local_bs, seed=exp.seed + 7919 * rank,
+                         device=device, start=1)
     ema = None  # loss EMA for the interval lines
     try:
         for epoch in range(start_epoch + 1, exp.epochs + 1):
@@ -172,7 +192,7 @@ def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
                                   host_dataset_ids=tb.host[0].dataset_ids)
                 losses.append(metrics["loss"])
                 step += 1
-                if it % exp.log_interval == 0 or it == exp.steps_per_epoch:
+                if rank == 0 and (it % exp.log_interval == 0 or it == exp.steps_per_epoch):
                     # The one read from the card per interval.
                     loss = float(losses[-1])
                     ema = loss if ema is None else 0.9 * ema + 0.1 * loss
@@ -198,27 +218,28 @@ def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
                             DROPS.format(drops), extra=_stats("drops", step=step, **drops))
             mean_loss = torch.stack(losses).mean().item()
             dt = time.time() - t0
-            log.info("epoch %d/%d loss %.4f (%.1f s, %.2f scenes/s)", epoch, exp.epochs,
-                     mean_loss, dt, exp.steps_per_epoch * exp.batch_size / dt,
-                     extra=_stats("epoch", epoch=epoch, step=step, loss=mean_loss, seconds=dt))
+            log_primary("epoch %d/%d loss %.4f (%.1f s, %.2f scenes/s)", epoch, exp.epochs,
+                        mean_loss, dt, exp.steps_per_epoch * exp.batch_size / dt,
+                        extra=_stats("epoch", epoch=epoch, step=step, loss=mean_loss,
+                                     seconds=dt))
             log_memory_stats(f"epoch {epoch} ")
             if epoch % exp.ckpt_interval_epochs == 0:
                 t = time.perf_counter()
                 path = mngr.save(step, model, optimizer)
                 dt = time.perf_counter() - t
                 size = os.path.getsize(path)
-                log.info("checkpoint step %d: %d bytes in %.3f s -> %s", step, size, dt, path,
-                         extra=_stats("checkpoint", step=step, bytes=size, seconds=dt))
+                log_primary("checkpoint step %d: %d bytes in %.3f s -> %s", step, size, dt,
+                            path, extra=_stats("checkpoint", step=step, bytes=size, seconds=dt))
             if epoch in val_epochs:
                 t = time.perf_counter()
                 results = evaluate(exp, model, device=device)
                 dt = time.perf_counter() - t
                 for name, res in results.items():
-                    log.info("[val %s] mAP@0.25 %.4f mAP@0.50 %.4f", name,
-                             res.get("mAP_0.25", 0), res.get("mAP_0.50", 0))
-                log.info("validation after epoch %d: %.2f s", epoch, dt,
-                         extra=_stats("val", epoch=epoch, step=step, seconds=dt,
-                                      results=results))
+                    log_primary("[val %s] mAP@0.25 %.4f mAP@0.50 %.4f", name,
+                                res.get("mAP_0.25", 0), res.get("mAP_0.50", 0))
+                log_primary("validation after epoch %d: %.2f s", epoch, dt,
+                            extra=_stats("val", epoch=epoch, step=step, seconds=dt,
+                                         results=results))
     finally:
         loader.close()
         mngr.close()
@@ -259,8 +280,7 @@ def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
     cfg = exp.model
     if metric is None:
         metric = IndoorMetric(cfg, exp.datasets_classes)
-    rank, world = ((dist.get_rank(), dist.get_world_size())
-                   if dist.is_available() and dist.is_initialized() else (0, 1))
+    rank, world = rank_world()
     eval_bs = exp.eval_batch_size or 4
 
     def drain(pending):

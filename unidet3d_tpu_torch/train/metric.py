@@ -49,7 +49,11 @@ class IndoorMetric:
     def gather_across_processes(self):
         """Every process contributes its scenes; afterwards each holds the
         union, ordered by rank, so that compute() gives the same everywhere.
-        A no-op unless a torch.distributed process group is initialised."""
+        A no-op unless a torch.distributed process group is initialised.
+        The scenes are numpy arrays on the host: ``all_gather_object``
+        pickles them through CPU tensors under gloo, and through the current
+        card under NCCL (``parallel.distributed.maybe_initialize`` selects
+        the rank's card first)."""
         if not (dist.is_available() and dist.is_initialized()):
             return
         payload = [None] * dist.get_world_size()
