@@ -136,8 +136,29 @@ Phases (any failure raises and the script exits non-zero):
      steps, step ms, the gradient all-reduce's ms and each rank's peak
      memory; then tools.train.main in both ranks (1 epoch x 2 steps,
      validation on phase 17's sets): one checkpoint written by rank 0,
-     equal models, equal gathered metric dicts (run after phase 22);
- 25. the whole script's wall time, the `kernels` JSON line (per training
+     equal models, equal gathered metric dicts (run after phase 28);
+ 25. [show-dir]: evaluate() with show_dir on the card over phase 17's
+     validation sets: one directory per real scene named by its index in
+     its info file, none twice, each _pred.obj with as many boxes as the
+     card's keep mask of its scene, 37 K1 and 6 K3 per forward; then
+     evaluate() on the CPU over the same scenes (a narrow model): every
+     _points.obj and _gt.obj equal byte for byte (run after phase 22);
+ 26. [record-activations]: tools.record_activations.main on the card
+     (seeded_init_(0), the 4,096-point fixture scene): the probe names,
+     shapes and dtypes of tests/fixtures/activations_seed0.npz, 37 K1 and 6
+     K3 launches, and in fp32 each probe within phase 5's bound of the same
+     recorder on the CPU over valid rows;
+ 27. [parity-eval]: tools.parity_eval.main on phase 22's synthetic
+     reference unidet3d.pth over ScanNet scenes whose infos exist only in
+     mmdet3d-v2 form (the re-anchor path): the delta table, exit 1 at the
+     default tolerance (random weights) and 0 at a tolerance above 100;
+ 28. [prep]: the native segmentator built with g++ and run on a
+     100,489-vertex mesh, two scenes exported through create_data's generic
+     path and one through prepare_multiscan, read back through
+     IndoorDataset, and one evaluate() group of each on the card; the
+     build's seconds, the segmentator's seconds per 100k vertices and the
+     export's seconds per scene;
+ 29. the whole script's wall time, the `kernels` JSON line (per training
      step of phase 13; the probe's modes per probe call), the card's name
      and power limit, and the final JSON line.
 Times are CUDA-event means (the conv kernels per shape: the median of 5 such
@@ -146,11 +167,14 @@ means) or synchronised host-clock medians on the card in this run.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
+import io
 import json
 import logging
 import os
+import pickle
 import socket
 import statistics
 import sys
@@ -178,7 +202,7 @@ from unidet3d_tpu_torch.data.batcher import (
     to_device,
 )
 from unidet3d_tpu_torch.data.dataset_specs import DEFAULT_LABEL_MAPPINGS, SCANNET_DET_CAT_IDS
-from unidet3d_tpu_torch.data.datasets import ConcatDataset
+from unidet3d_tpu_torch.data.datasets import ConcatDataset, IndoorDataset
 from unidet3d_tpu_torch.data.loader import TrainLoader
 from unidet3d_tpu_torch.data.synthetic import (
     reference_state_dict,
@@ -195,7 +219,9 @@ from unidet3d_tpu_torch.models.detector import (
     rotated_scenes_of,
     scene_flags,
 )
+from unidet3d_tpu_torch.models.decoder import NEG_INF
 from unidet3d_tpu_torch.models.postprocess import predict_batch, select_topk_instances
+from unidet3d_tpu_torch.native import segmentator
 from unidet3d_tpu_torch.ops import cuda_build
 from unidet3d_tpu_torch.ops.attention import (
     attention_bwd_plain,
@@ -230,7 +256,8 @@ from unidet3d_tpu_torch.parallel.distributed import (
     maybe_initialize,
 )
 from unidet3d_tpu_torch.parallel.train_step import make_train_step
-from unidet3d_tpu_torch.tools import convert_checkpoint
+from unidet3d_tpu_torch.tools import convert_checkpoint, create_data, parity_eval, prep_datasets
+from unidet3d_tpu_torch.tools import record_activations as record_tool
 from unidet3d_tpu_torch.tools import test as test_cli
 from unidet3d_tpu_torch.tools import train as train_cli
 from unidet3d_tpu_torch.tools.probe_conv_bottleneck import measure, probe_inputs, run_modes
@@ -1462,6 +1489,7 @@ def phase_eval_loop(table, card, root):
     print(f"[eval-loop] mAP (random weights: says nothing about accuracy): {map_line(res)} "
           f"| {card}")
     assert_oracle("eval-loop", exp, card)
+    return exp, sum(st["seconds"] for st in stats)
 
 
 class RecordingMetric(IndoorMetric):
@@ -1757,6 +1785,348 @@ def phase_load_from(card, root, cli, table):
           f"{n_stats} running statistics) equal to the converted ones, all {len(decoder)} "
           f"decoder.* tensors equal to seeded_init_(seed 0); no kernel launched | {card}")
 
+
+
+# [show-dir], [record-activations], [parity-eval] and [prep]: the
+# visualisation, checkpoint-parity and data-preparation tools, on the card
+# where they run a forward, in the temporary data root of the phases above.
+# [show-dir]'s CPU run: a narrow, small-capacity model. The points and ground
+# truth that evaluate() draws are the datasets' and test pipelines' alone
+# (collate subsamples its own copy), so they must equal the card's byte for
+# byte whatever the model; the full config on the CPU would take minutes.
+SHOW_CPU_MODEL = dict(num_planes=(8, 16), d_model=32, num_heads=2, hidden_dim=32,
+                      num_layers=1, max_points=16384, voxel_capacity=16384,
+                      max_superpoints=512, compute_dtype="float32")
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                       "activations_seed0.npz")
+# The recorder's fixture config in fp32: the card against the CPU within
+# [e2e-small]'s bound (1e-3 of each probe's largest magnitude, at least 1).
+RECORD_FP32_CONFIG = """
+from unidet3d_tpu_torch.core.config import default_config
+from unidet3d_tpu_torch.core.experiment import DatasetSpec, ExperimentConfig
+
+
+def get_config():
+    return ExperimentConfig(
+        model=default_config(max_points=4096, voxel_capacity=4096, max_superpoints=512,
+                             compute_dtype="float32"),
+        datasets=(DatasetSpec(name="scannet", data_root="."),))
+"""
+PARITY_POINTS = (96000, 80000, 64000, 48000)  # [parity-eval]: one group of ScanNet scenes
+PARITY_CONFIG = """
+from unidet3d_tpu_torch.core.config import default_config
+from unidet3d_tpu_torch.core.experiment import DatasetSpec, ExperimentConfig
+
+
+def get_config():
+    return ExperimentConfig(
+        model=default_config(), eval_batch_size={eval_batch},
+        datasets=(DatasetSpec("scannet", {root!r}, ann_val="infos_val.pkl"),))
+"""
+PREP_SIDE = 317  # [prep]'s mesh: a 317 x 317 vertex grid, 100,489 vertices
+PREP_GENERIC_POINTS = (100000, 90000)  # two scenes through create_data's generic path
+
+
+def captured(fn, *args):
+    """fn(*args) with its standard output caught: (result, the text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue()
+
+
+def scene_order(ds) -> list:
+    """The eval loader's order of `ds`'s scenes (one process): largest first."""
+    sizes = np.asarray([ds.scene_size(k) for k in range(len(ds))])
+    return np.argsort(-sizes, kind="stable").tolist()
+
+
+def read_bytes(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase_show_dir(exp, eval_s, table, card, root):
+    """[show-dir]: evaluate() on the card with show_dir over [eval-loop]'s
+    validation sets and weights, one loader thread (ARKitScenes' test
+    pipeline draws from its dataset's RandomState in the loader's order):
+    one directory per real scene, named <dataset>_scene<k> by its index in
+    its info file, none twice; each _pred.obj with as many boxes as the
+    card's keep mask of that scene; 37 K1 and 6 K3 per forward. Then
+    evaluate() on the CPU over the same scenes (SHOW_CPU_MODEL): every
+    _points.obj and _gt.obj equal to the card's byte for byte."""
+    out = os.path.join(root, "show_card")
+    net = seeded_init_(UniDet3D(exp.model, table, device="cuda"), 0)
+    metric = RecordingMetric(exp.model, exp.datasets_classes)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, stats = evaluate_with_stats(exp, net, "cuda", num_threads=1, metric=metric,
+                                   show_dir=out)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = read_counts()
+    groups = sum(st["groups"] for st in stats)
+    assert launches == dict(NO_LAUNCHES, subm_conv=37 * groups, flash_attention=6 * groups), \
+        launches
+    datasets = build_datasets(exp, "val")
+    names = [f"{exp.model.datasets[ds.dataset_idx]}_scene{k:05d}"
+             for ds in datasets for k in range(len(ds))]
+    assert sorted(os.listdir(out)) == sorted(names) and len(set(names)) == len(names)
+    # The metric saw the scenes in the loader's order; each scene's keep mask
+    # against the boxes in its _pred.obj (8 vertices and 12 lines per box).
+    seen = iter(metric.scenes)
+    kept = []
+    for ds in datasets:
+        for k in scene_order(ds):
+            didx, _, _, _, keep = next(seen)
+            assert didx == ds.dataset_idx
+            name = f"{exp.model.datasets[didx]}_scene{k:05d}"
+            n = int(np.asarray(keep, bool).sum())
+            pred = os.path.join(out, name, f"{name}_pred.obj")
+            if n:
+                kinds = [ln[:2] for ln in read_bytes(pred).decode().splitlines()]
+                assert (kinds.count("v "), kinds.count("l ")) == (8 * n, 12 * n), (name, n)
+            else:
+                assert not os.path.exists(pred), name
+            kept.append(n)
+    assert next(seen, None) is None and sum(kept) > 0
+    n_points = sum(read_bytes(os.path.join(out, n, f"{n}_points.obj")).count(b"\n")
+                   for n in names)
+    print(f"[show-dir] evaluate() on the card with show_dir over [eval-loop]'s sets: "
+          f"{len(names)} scene directories named by info index, none twice "
+          f"({names[0]} ... {names[-1]}); kept boxes per _pred.obj {kept} = the card's keep "
+          f"masks; launches K1 {launches['subm_conv']}, K3 {launches['flash_attention']} over "
+          f"{groups} groups (37 / 6 per forward); {card_s:.2f} s with the .obj files "
+          f"({n_points} points written) against [eval-loop]'s {eval_s:.2f} s without | {card}")
+
+    cpu_cfg = default_config(**SHOW_CPU_MODEL)
+    cpu_exp = dataclasses.replace(exp, model=cpu_cfg)
+    cpu_net = seeded_init_(UniDet3D(cpu_cfg, table, device="cpu"), 0)
+    cpu_out = os.path.join(root, "show_cpu")
+    t0 = time.perf_counter()
+    evaluate_with_stats(cpu_exp, cpu_net, "cpu", num_threads=1, show_dir=cpu_out)
+    cpu_s = time.perf_counter() - t0
+    assert sorted(os.listdir(cpu_out)) == sorted(names)
+    n_files = 0
+    for name in names:
+        for tag in ("points", "gt"):
+            f = f"{name}_{tag}.obj"
+            assert read_bytes(os.path.join(out, name, f)) == read_bytes(
+                os.path.join(cpu_out, name, f)), f
+            n_files += 1
+    print(f"[show-dir] evaluate() on the CPU over the same scenes (a narrow model at "
+          f"max_points {cpu_cfg.max_points}): all {n_files} _points.obj / _gt.obj files equal "
+          f"to the card's byte for byte; {cpu_s:.2f} s | {card}")
+
+
+def phase_record_activations(card, root):
+    """[record-activations]: tools.record_activations.main on the card, the
+    weights seeded_init_(0), the 4,096-point fixture scene: the fixture's
+    seven probe names, shapes and dtypes, 37 K1 and 6 K3 launches; then
+    the fixture config in fp32 on the card against the same recorder on the
+    CPU, each probe within [e2e-small]'s bound over valid rows (the
+    superpoint mask and the unused class columns equal); the default (bf16)
+    card run's differences from the CPU are printed beside them."""
+    fixture = np.load(FIXTURE)
+    cfg32 = os.path.join(root, "record_fp32.py")
+    with open(cfg32, "w") as f:
+        f.write(RECORD_FP32_CONFIG)
+    runs = {}
+    for tag, extra in (("bf16", []), ("fp32", ["--config", cfg32])):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rec, text = captured(record_tool.main,
+                             [os.path.join(root, f"rec_{tag}_card.npz"), *extra])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = read_counts()
+        assert launches == dict(NO_LAUNCHES, subm_conv=37, flash_attention=6), (tag, launches)
+        ref, _ = captured(record_tool.main,
+                          [os.path.join(root, f"rec_{tag}_cpu.npz"), *extra, "--device", "cpu"])
+        assert set(rec) == set(ref) == set(fixture.files), (tag, sorted(rec))
+        for name in fixture.files:
+            assert rec[name].shape == fixture[name].shape, (tag, name, rec[name].shape)
+            assert rec[name].dtype == fixture[name].dtype, (tag, name, rec[name].dtype)
+        valid = ref["aux/sp_valid"][0]
+        assert np.array_equal(rec["aux/sp_valid"], ref["aux/sp_valid"]), tag
+        rows = {"inter/backbone/__call__/0": lambda x: x,
+                "aux/sp_centers": lambda x: x[0, valid]}
+        errs = {}
+        for name in fixture.files:
+            if name == "aux/sp_valid":
+                continue
+            pick = rows.get(name, lambda x: x[:, 0, valid])
+            a, b = pick(rec[name]), pick(ref[name])
+            # The class columns a dataset does not use hold NEG_INF on both
+            # sides; the scale is the real columns'.
+            masked = b <= NEG_INF
+            assert np.array_equal(a[masked], b[masked]), (tag, name)
+            a, b = a[~masked], b[~masked]
+            scale = max(1.0, float(np.abs(b).max()))
+            errs[name] = (float(np.abs(a - b).max()), scale)
+            if tag == "fp32":
+                assert errs[name][0] <= 1e-3 * scale, (name, errs[name])
+        runs[tag] = (errs, card_s, text.strip())
+    for tag, (errs, card_s, text) in runs.items():
+        print(f"[record-activations] {tag} ({'the tool default' if tag == 'bf16' else 'asserted'}"
+              f"): the fixture's 7 probe names, shapes and dtypes; 37 K1 and 6 K3 launches; "
+              f"card vs CPU max abs err / largest magnitude over valid rows: " + ", ".join(
+                  f"{n.split('/', 1)[1]} {e:.2e} / {sc:.3g}" for n, (e, sc) in errs.items())
+              + f"; the card call {card_s:.2f} s ({text}) | {card}")
+
+
+def phase_parity_eval(card, root):
+    """[parity-eval]: tools.parity_eval.main on [load-from]'s synthetic
+    reference unidet3d.pth (production widths) at the full config, over a
+    ScanNet validation set whose infos exist only in mmdet3d-v2 form under
+    mmdet3d/ (so the re-anchor path runs): it prints the delta table and
+    returns 1 at the default tolerance (random weights), then 0 at a
+    tolerance above 100; 37 K1 and 6 K3 per group's forward."""
+    data = os.path.join(root, "parity_scannet")
+    path = write_info_dataset(data, [info_scene(0, f"scene{i:04d}_00", n, 3000 + i)
+                                     for i, n in enumerate(PARITY_POINTS)], ann_file="port.pkl")
+    with open(path, "rb") as f:
+        info = pickle.load(f)
+    os.remove(path)
+    for e in info["data_list"]:  # bare file names, as mmdet3d writes them
+        e["lidar_points"]["lidar_path"] = os.path.basename(e["lidar_points"]["lidar_path"])
+        for key in ("pts_semantic_mask_path", "pts_instance_mask_path", "super_pts_path"):
+            e[key] = os.path.basename(e[key])
+    os.makedirs(os.path.join(data, "mmdet3d"))
+    with open(os.path.join(data, "mmdet3d", "infos_val.pkl"), "wb") as f:
+        pickle.dump(info, f)
+    cfg_path = os.path.join(root, "parity_config.py")
+    with open(cfg_path, "w") as f:
+        f.write(PARITY_CONFIG.format(eval_batch=EVAL_BATCH, root=data))
+    ckpt = os.path.join(root, "unidet3d.pth")
+    ann = os.path.join(data, "infos_val.pkl")
+    assert os.path.exists(ckpt) and not os.path.exists(ann)
+    out = {}
+    for tol in ("0.3", "101"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with loop_records() as rec:
+            code, text = captured(parity_eval.main, [ckpt, "--config", cfg_path, "--tolerance",
+                                                     tol])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+        groups = sum(st["groups"] for st in rec.eval)
+        assert groups >= 1 and launches == dict(
+            NO_LAUNCHES, subm_conv=37 * groups, flash_attention=6 * groups), launches
+        out[tol] = (code, text, secs, groups)
+        if tol == "0.3":
+            assert os.path.exists(ann), "the mmdet3d-v2 infos were not re-anchored"
+    code, text, secs, groups = out["0.3"]
+    lines = text.splitlines()
+    header = next(i for i, ln in enumerate(lines) if ln.startswith("dataset "))
+    row = lines[header + 1]
+    assert code == 1 and row.split()[0] == "scannet", (code, lines)
+    assert "PARITY FAIL (|delta| > 0.3): ['scannet']" in text, text
+    code_ok, text_ok, secs_ok, _ = out["101"]
+    assert code_ok == 0 and row in text_ok.splitlines(), text_ok
+    assert "PARITY OK (all deltas within 101.0)" in text_ok, text_ok
+    for ln in lines[header:header + 2]:
+        print(f"[parity-eval] {ln} | {card}")
+    print(f"[parity-eval] tools.parity_eval.main on the synthetic reference unidet3d.pth: "
+          f"re-anchored mmdet3d/infos_val.pkl ({len(PARITY_POINTS)} ScanNet scenes), converted "
+          f"and evaluated in {secs:.2f} s (K1 37, K3 6 per forward over {groups} group); exit "
+          f"1 at --tolerance 0.3 (random weights), 0 at 101 ({secs_ok:.2f} s) | {card}")
+
+
+def phase_prep(table, card, root):
+    """[prep]: the native segmentator built with g++ on this machine and run
+    on a synthetic 100,489-vertex mesh; two scenes exported through
+    create_data's generic path (as 3RScan) and one through
+    prepare_multiscan (its superpoints from the segmentator); each read back
+    through IndoorDataset, then one evaluate() group of each dataset on the
+    card at the full config (37 K1 and 6 K3 per forward, finite mAP)."""
+    fresh = not segmentator.library_path().exists()
+    t0 = time.perf_counter()
+    lib = segmentator.build()
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    xs, ys = np.meshgrid(np.arange(PREP_SIDE), np.arange(PREP_SIDE))
+    verts = np.stack([xs.ravel() * 0.02, ys.ravel() * 0.02,
+                      np.where(xs.ravel() < PREP_SIDE // 2, 0.0, (xs.ravel() - PREP_SIDE // 2) * 0.02)
+                      + rng.rand(xs.size) * 0.002], 1).astype(np.float32)
+    a = (np.arange(PREP_SIDE - 1)[:, None] * PREP_SIDE + np.arange(PREP_SIDE - 1)[None]).ravel()
+    faces = np.concatenate([np.stack([a, a + 1, a + PREP_SIDE], 1),
+                            np.stack([a + 1, a + PREP_SIDE + 1, a + PREP_SIDE], 1)]).astype(np.int32)
+    t0 = time.perf_counter()
+    seg = segmentator.segment_mesh(verts, faces)
+    seg_s = time.perf_counter() - t0
+    assert seg.shape == (len(verts),) and seg.min() == 0 and seg.max() >= 1
+    assert np.array_equal(np.unique(seg), np.arange(seg.max() + 1))
+
+    # create_data's generic path: <scene>_point.npy and its labels, as 3RScan.
+    raw = os.path.join(root, "prep_raw")
+    os.makedirs(raw)
+    names = []
+    for i, n in enumerate(PREP_GENERIC_POINTS):
+        scene = info_scene(RSCAN, f"gen{i}", n, 4000 + i)
+        name = scene["name"]
+        np.save(os.path.join(raw, f"{name}_point.npy"), scene["points"])
+        np.save(os.path.join(raw, f"{name}_ins_label.npy"), scene["instance_mask"])
+        np.save(os.path.join(raw, f"{name}_sem_label.npy"), np.zeros(n, np.int64))
+        np.save(os.path.join(raw, f"{name}_sp.npy"), scene["super_points"])
+        np.save(os.path.join(raw, f"{name}_bbox.npy"), np.concatenate(
+            [scene["boxes"], scene["labels"][:, None]], 1).astype(np.float32))
+        names.append(name)
+    gen_root = os.path.join(root, "prep_3rscan")
+    t0 = time.perf_counter()
+    create_data.prepare_generic(raw, gen_root, names, "infos_val.pkl", workers=2)
+    gen_s = (time.perf_counter() - t0) / len(names)
+
+    # prepare_multiscan: one .pth scene on the mesh, 20 instances of 1/25 of it.
+    pth_dir = os.path.join(root, "prep_pths")
+    os.makedirs(pth_dir)
+    inst = np.arange(len(verts)) // (len(verts) // 25)
+    inst[inst >= 20] = -1
+    sem = np.where(inst >= 0, 3 + inst % 17, 2)
+    torch.save({"xyz": verts, "rgb": (rng.rand(len(verts), 3) * 255).astype(np.float32),
+                "faces": faces, "instance_ids": inst, "sem_labels": sem, "inst2obj": {}},
+               os.path.join(pth_dir, "scene_ms0.pth"))
+    ms_root = os.path.join(root, "prep_multiscan")
+    t0 = time.perf_counter()
+    prep_datasets.prepare_multiscan(pth_dir, ms_root, "infos_val.pkl", workers=1)
+    ms_s = time.perf_counter() - t0
+
+    back = {}
+    for name, data_root, ds in (("3rscan", gen_root, RSCAN), ("multiscan", ms_root, 2)):
+        d = IndoorDataset(data_root, "infos_val.pkl", ds, test_mode=True,
+                          label_mapping=DEFAULT_LABEL_MAPPINGS[name])
+        back[name] = [(len(d[k]["points"]), len(d[k]["gt_labels_3d"]),
+                       int(d[k]["sp_pts_mask"].max()) + 1) for k in range(len(d))]
+    assert [n for n, _, _ in back["3rscan"]] == list(PREP_GENERIC_POINTS), back
+    assert back["multiscan"] == [(len(verts), 20, int(seg.max()) + 1)], back
+    exp = ExperimentConfig(model=default_config(), eval_batch_size=EVAL_BATCH, datasets=(
+        DatasetSpec("3rscan", gen_root, ann_val="infos_val.pkl"),
+        DatasetSpec("multiscan", ms_root, ann_val="infos_val.pkl")))
+    net = seeded_init_(UniDet3D(exp.model, table, device="cuda"), 0)
+    torch.cuda.synchronize()
+    reset_counts()
+    res, stats = evaluate_with_stats(exp, net, "cuda")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    assert [st["groups"] for st in stats] == [1, 1], stats
+    assert launches == dict(NO_LAUNCHES, subm_conv=37 * 2, flash_attention=6 * 2), launches
+    for name, r in res.items():
+        assert all(np.isfinite(v) for v in r.values()), (name, r)
+    print(f"[prep] native segmentator: g++ build {build_s:.2f} s "
+          f"({lib.name}{'' if fresh else ', already built'}); "
+          f"{len(verts)} vertices, {len(faces)} faces -> {int(seg.max()) + 1} segments in "
+          f"{seg_s:.3f} s ({seg_s / (len(verts) / 1e5):.3f} s per 100k vertices) | {card}")
+    print(f"[prep] create_data generic export: {len(names)} scenes of {PREP_GENERIC_POINTS} "
+          f"points, {gen_s:.3f} s per scene; prepare_multiscan (segmentator included): 1 scene "
+          f"of {len(verts)} points in {ms_s:.3f} s; read back through IndoorDataset (points, "
+          f"boxes, superpoints) {back} | {card}")
+    print(f"[prep] evaluate() on the card, one group of each: launches K1 "
+          f"{launches['subm_conv']}, K3 {launches['flash_attention']} (37 / 6 per forward); "
+          f"{map_line(res)} (random weights) | {card}")
 
 
 # [device-pack] and [ddp].
@@ -2129,13 +2499,17 @@ def main() -> int:
     phase_device_pack(samples, table, card, native_s["prod group"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
         loader_sustained = phase_loader_train(table, card, root)
-        phase_eval_loop(table, card, root)
+        eval_exp, eval_s = phase_eval_loop(table, card, root)
         phase_eval_small(table, card, root)
         cli = phase_train_cli(card, root, loader_sustained)
         phase_test_cli(card, cli)
         phase_resume(card, cli)
         phase_load_from(card, root, cli, table)
         del cli
+        phase_show_dir(eval_exp, eval_s, table, card, root)
+        phase_record_activations(card, root)
+        phase_parity_eval(card, root)
+        phase_prep(table, card, root)
         ddp_launches = phase_ddp(batch, gt, pack, table, card, root)
     assert ddp_launches == {name: launches[name] for name in COUNTERS}, ddp_launches
 
@@ -2183,7 +2557,10 @@ def main() -> int:
           "against the operations the mode's function needs over 989 TFLOP/s bf16; "
           "library: index_select+mm, embedding_bag, einsum, einsum). Also counted and "
           "asserted on their own paths: [ddp] the same launches per rank per step, "
-          "[device-pack] 37 K1 and 6 K3 in the forward without a pack")
+          "[device-pack] 37 K1 and 6 K3 in the forward without a pack, and 37 K1 and 6 K3 "
+          "per forward in [show-dir] (evaluate with show_dir), [record-activations] "
+          "(tools.record_activations), [parity-eval] (tools.parity_eval) and [prep] "
+          "(evaluate on the prepared datasets)")
     print(f"[time] the whole script: {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -38,7 +38,13 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "unidet3d_tpu_torch.tools.probe_conv_bottleneck" in report["imported"]
     for name in ("tools.train", "tools.test", "tools.convert_checkpoint", "train.checkpoint",
                  "train.profiling", "configs.unidet3d_joint", "configs.unidet3d_scannet",
-                 "parallel.distributed", "ops.keys", "ops.voxelize", "ops.pyramid"):
+                 "parallel.distributed", "ops.keys", "ops.voxelize", "ops.pyramid",
+                 # The visualisation, checkpoint-parity and data-preparation modules.
+                 "viz.show_results", "viz.image_vis", "tools.record_activations",
+                 "tools.convert_mmdet3d_infos", "tools.parity_eval", "native.segmentator",
+                 "native.build", "tools.ply", "tools.create_data", "tools.prep_datasets",
+                 "tools.remap_superpoints", "tools.arkitscenes_utils",
+                 "tools.arkitscenes_loader"):
         assert f"unidet3d_tpu_torch.{name}" in report["imported"], name
     assert report["bad"] == []
 

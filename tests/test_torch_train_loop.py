@@ -329,9 +329,13 @@ def test_cli_train_then_test_prints_the_evaluate_map(roots, tmp_path, capsys):
     res = want["multiscan"]
     assert (f"multiscan: mAP@0.25={res['mAP_0.25']:.4f} mAP@0.50={res['mAP_0.50']:.4f}"
             in printed.splitlines())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        test_cli.main([str(cfg), str(work / "checkpoints"), "--device", "cpu", "--show-dir",
-                       str(tmp_path / "show")])
+    # --show-dir: the same results, and one directory per val scene, named by
+    # its index in the info file.
+    shown = test_cli.main([str(cfg), str(work / "checkpoints"), "--device", "cpu",
+                           "--show-dir", str(tmp_path / "show")])
+    assert shown == want
+    assert sorted(os.listdir(tmp_path / "show")) == [
+        f"multiscan_scene{k:05d}" for k in range(len(VAL_POINTS[MULTISCAN]))]
     with pytest.raises(FileNotFoundError, match="no checkpoint found"):
         test_cli.main([str(cfg), str(tmp_path / "none"), "--device", "cpu"])
 

@@ -305,6 +305,13 @@ class EvalLoader:
         for t in self._threads:
             t.start()
 
+    def group_indices(self, g: int) -> list:
+        """The dataset indices (info-file order) of group g's real scenes, in
+        the group's order; the padded slots that repeat the last scene are
+        not listed."""
+        lo = g * self.batch_size
+        return [int(i) for i in self._order[lo:lo + self.batch_size]]
+
     def _scene_order(self, sort_by_size: bool) -> np.ndarray:
         n = len(self.dataset)
         if sort_by_size and hasattr(self.dataset, "scene_size"):
@@ -380,7 +387,7 @@ class EvalLoader:
                 samples, cfg_b, _, staged = _build(
                     lambda: [self.dataset[i] for i in idxs], self.cfg, None,
                     self.stager, self.times, self._bucket_cfg)
-                n_real = min(self.batch_size, n - lo)
+                n_real = len(self.group_indices(g))
                 self._q.put((g, (samples, staged, n_real, cfg_b)))
         except BaseException as e:  # surface in the consumer, don't hang it
             self._err = e

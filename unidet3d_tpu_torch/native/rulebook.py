@@ -1,30 +1,29 @@
 """ctypes binding of the native GridPack builder (``native/rulebook.cc``).
 
 The library is compiled with g++ the first time it is needed, into
-``build/libunidet3d_rulebook-<hash>.so`` at the repository root; the hash
-covers the source and the flags, so an edited source is rebuilt and a stale
-library (``-march=native`` binds it to the host) never loads. Nothing builds
-at import. A failed build raises with the compiler's output: there is no
-fallback to the numpy builder, whose 5-10x slower tables would only show as
-a slow loader.
+``build/libunidet3d_rulebook-<hash>.so`` at the repository root
+(``native/build.py``; ``-march=native`` binds it to the host, and the hash
+covers the flags). Nothing builds at import. A failed build raises with the
+compiler's output: there is no fallback to the numpy builder, whose 5-10x
+slower tables would only show as a slow loader.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import subprocess
 from pathlib import Path
 from typing import Sequence
 
 import numpy as np
 
 from ..ops.gridpack import GridPack
+from . import build as native_build
 
 SRC = Path(__file__).resolve().with_name("rulebook.cc")
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+BUILD_DIR = native_build.BUILD_DIR
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread")
+STEM = "libunidet3d_rulebook"
 
 _P = ctypes.c_void_p
 _ARGTYPES = (_P, _P, ctypes.c_int64, _P, ctypes.c_int32, ctypes.c_int32,
@@ -33,33 +32,15 @@ _ARGTYPES = (_P, _P, ctypes.c_int64, _P, ctypes.c_int32, ctypes.c_int32,
 
 
 def library_path(src: Path = SRC) -> Path:
-    """Where the library of `src` is built: its name hashes the source and
-    the flags."""
-    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libunidet3d_rulebook-{digest.hexdigest()[:12]}.so"
+    """Where the library of `src` is built."""
+    return native_build.library_path(src, STEM, CXX_FLAGS, BUILD_DIR)
 
 
 def build(src: Path = SRC) -> Path:
     """Compiles `src` unless its library exists; returns the library's path.
     Raises RuntimeError with the compiler's output if g++ is missing or
-    fails. The library is written under a temporary name and renamed, so
-    processes building at once never load a partial file."""
-    lib = library_path(src)
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    try:
-        proc = subprocess.run(["g++", *CXX_FLAGS, str(src), "-o", str(tmp)],
-                              capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(
-            f"g++ not found: the native rulebook builder ({src.name}) cannot be "
-            "compiled") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {src.name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    fails."""
+    return native_build.build_library(src, STEM, CXX_FLAGS, BUILD_DIR)
 
 
 @functools.cache

@@ -1,13 +1,16 @@
 """Evaluation CLI, the port of the JAX package's ``tools/test.py``:
 
   python -m unidet3d_tpu_torch.tools.test <config.py> <checkpoint_dir>
-      [--step N] [--cfg-options key=val ...] [--device cuda|cpu]
+      [--step N] [--show] [--show-dir DIR] [--cfg-options key=val ...]
+      [--device cuda|cpu]
 
 Builds the model, restores the checkpoint strictly (the latest step unless
 ``--step``), runs ``train.loop.evaluate`` and prints one
-``name: mAP@0.25=... mAP@0.50=...`` line per dataset. ``--show`` and
-``--show-dir`` need the visualisation package, which is not ported yet
-(ROADMAP Queue 1 item 5): they raise.
+``name: mAP@0.25=... mAP@0.50=...`` line per dataset. ``--show-dir`` writes
+each scene's points, ground truth and predictions as .obj files under
+DIR/<dataset>_scene<k>/ (k: the scene's index in its info file); ``--show``
+opens each scene in the open3d viewer, and without open3d warns once and
+evaluates on.
 
 Under torchrun (``torchrun --nproc_per_node N -m
 unidet3d_tpu_torch.tools.test ...``) every rank restores the same checkpoint
@@ -25,16 +28,14 @@ def main(argv=None) -> dict:
     ap.add_argument("config")
     ap.add_argument("checkpoint", help="checkpoint directory (<work_dir>/checkpoints)")
     ap.add_argument("--step", type=int, default=None)
-    ap.add_argument("--show", action="store_true", help="not ported yet: raises")
-    ap.add_argument("--show-dir", default=None, help="not ported yet: raises")
+    ap.add_argument("--show", action="store_true",
+                    help="open each scene in the open3d viewer")
+    ap.add_argument("--show-dir", default=None,
+                    help="write each scene's points, GT and predictions as .obj files here")
     ap.add_argument("--cfg-options", nargs="*", default=[])
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (the plain PyTorch versions)")
     args = ap.parse_args(argv)
-    if args.show or args.show_dir:
-        raise NotImplementedError(
-            "--show / --show-dir: the visualisation package (viz/) is not ported yet "
-            "(ROADMAP Queue 1 item 5)")
 
     logging.basicConfig(level=logging.INFO)
 
@@ -57,7 +58,8 @@ def main(argv=None) -> dict:
             raise FileNotFoundError(f"no checkpoint found in {args.checkpoint}")
         logging.getLogger("unidet3d_tpu_torch").info("restored step %d from %s", step,
                                                      args.checkpoint)
-        results = evaluate(exp, model, device=device)
+        results = evaluate(exp, model, device=device, show=args.show,
+                           show_dir=args.show_dir)
     finally:
         destroy(created)
     for name, res in results.items():

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import itertools
 import logging
 import os
 import statistics
@@ -46,6 +47,7 @@ from ..models.detector import UniDet3D
 from ..models.postprocess import predict_batch
 from ..parallel.distributed import broadcast_module, is_primary, local_batch_size, rank_world
 from ..parallel.train_step import make_train_step
+from ..viz.show_results import show_online, show_result
 from ..weights import seeded_init_
 from .checkpoint import CheckpointManager, merge_by_prefix, restore_params
 from .metric import IndoorMetric
@@ -258,7 +260,8 @@ def at_capacities(model: UniDet3D, cfg_b: ModelConfig) -> UniDet3D:
 
 
 def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
-             num_threads: int | None = None, metric: IndoorMetric | None = None):
+             num_threads: int | None = None, metric: IndoorMetric | None = None,
+             show: bool = False, show_dir: str | None = None):
     """Per-dataset validation: returns IndoorMetric.compute()'s
     {dataset name: {"mAP_0.25", "mAP_0.50", ...}}.
 
@@ -271,8 +274,16 @@ def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
     In a torch.distributed run every process evaluates a strided shard of
     each dataset and the metric gathers before compute(). Each dataset's
     scenes/s, groups per bucket, seconds the loop waited for each group and
-    the workers' seconds per group are logged (the record's `eval_stats`). `metric` is the IndoorMetric to fill (a new
-    one by default); the scenes it holds stay readable after the call."""
+    the workers' seconds per group are logged (the record's `eval_stats`).
+    `metric` is the IndoorMetric to fill (a new one by default); the scenes
+    it holds stay readable after the call.
+
+    With `show_dir`, each scene's points, ground-truth boxes and kept
+    predictions are written as .obj files (``viz/show_results.py::
+    show_result``) under <show_dir>/<dataset>_scene<k>/, k being the scene's
+    index in its info file, so that the processes of a distributed run write
+    disjoint names. With `show`, each scene opens in the open3d viewer;
+    without open3d this warns once and evaluation goes on."""
     device = resolve_device(device)
     param = next(model.parameters())
     if param.device.type != device.type:
@@ -284,16 +295,31 @@ def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
     eval_bs = exp.eval_batch_size or 4
 
     def drain(pending):
-        """The host half of one group: detections to numpy, into the metric."""
-        det, samples, n_real, didx = pending
-        det = [x.cpu().numpy() for x in det]
-        for i in range(n_real):
+        """The host half of one group: detections to numpy, into the metric
+        and the visualisers."""
+        nonlocal show
+        det, samples, scene_ids, didx = pending
+        boxes, labels, scores, valid = (x.cpu().numpy() for x in det)
+        for i, k in enumerate(scene_ids):
             gt_boxes = samples[i]["gt_bboxes_3d"]
             if gt_boxes.shape[1] == 6:
                 gt_boxes = np.concatenate(
                     [gt_boxes, np.zeros((len(gt_boxes), 1), np.float32)], 1)
-            metric.process(didx, *(x[i] for x in det), gt_boxes,
+            metric.process(didx, boxes[i], labels[i], scores[i], valid[i], gt_boxes,
                            samples[i]["gt_labels_3d"])
+            if not (show or show_dir):
+                continue
+            pred = boxes[i][valid[i].astype(bool)]
+            points = np.asarray(samples[i]["points"], np.float32)
+            if show_dir:
+                show_result(show_dir, f"{cfg.datasets[didx]}_scene{k:05d}", points,
+                            gt_boxes, pred)
+            if show:
+                try:
+                    show_online(points, pred)
+                except ImportError as e:
+                    log.warning("show disabled: %s", e)
+                    show = False
 
     was_training = model.training
     model.eval()
@@ -310,7 +336,7 @@ def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
             n_ds = 0
             t0 = time.time()
             groups = iter(loader)
-            while True:
+            for g in itertools.count():
                 t_wait = time.perf_counter()
                 try:
                     samples, batch, _, pack, n_real, cfg_b = next(groups)
@@ -324,7 +350,7 @@ def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
                                         batch.sp_ids)
                 if pending is not None:
                     drain(pending)
-                pending = (det, samples, n_real, didx)
+                pending = (det, samples, loader.group_indices(g), didx)
                 buckets[(cfg_b.max_points, cfg_b.max_superpoints)] += 1
                 n_ds += n_real
             if pending is not None:
