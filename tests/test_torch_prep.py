@@ -9,6 +9,10 @@ ScanNet++, the OBJ reader with its MTL texture lookup), ``remap_superpoints``,
 superpoints). Every written tree is equal to the JAX tool's byte for byte,
 every returned array bit for bit, and every prepared dataset reads back
 through the port's ``data/datasets.py::IndoorDataset``.
+
+The JAX segmentator is built in a directory of this module's own (the
+fixture ``private_jax_segmentator``), so that this file writes nothing under
+``unidet3d_tpu/native/``, where the JAX package's own tests build it.
 """
 import json
 import os
@@ -24,7 +28,6 @@ from PIL import Image
 
 from test_create_data import _write_binary_ply, _write_fake_scannet_scan
 from test_prep_datasets import _grid_mesh
-from test_segmentator import _grid_plane
 from unidet3d_tpu.native import segmentator as jax_segmentator
 from unidet3d_tpu.tools import arkitscenes_loader as jax_ark_loader
 from unidet3d_tpu.tools import arkitscenes_utils as jax_ark_utils
@@ -46,6 +49,48 @@ from unidet3d_tpu_torch.tools import (
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_segmentator(tmp_path_factory):
+    """The JAX segmentator's library, built and loaded from a directory of
+    this module's own for every test here. The JAX loader compiles in place
+    into its package directory, first deleting every segmentator library it
+    finds there, and remembers a failure for the rest of the process; so
+    processes that load it there at once can break each other's load. Its
+    module globals point it here instead, and the unchanged loader compiles
+    the unchanged source into this directory and cleans up only here. It is
+    loaded once on this thread before any test runs: the JAX tools call it
+    from a thread pool, and a second thread that enters the loader while the
+    first compiles is told the library is unavailable."""
+    lib_dir = tmp_path_factory.mktemp("jax_segmentator")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_segmentator, "_DIR", str(lib_dir))
+        mp.setattr(jax_segmentator, "_LIB",
+                   str(lib_dir / os.path.basename(jax_segmentator._LIB)))
+        mp.setattr(jax_segmentator, "_lib", None)
+        mp.setattr(jax_segmentator, "_tried", False)
+        assert jax_segmentator.available()
+        assert os.listdir(lib_dir) == [os.path.basename(jax_segmentator._LIB)]
+        yield lib_dir
+
+
+def _grid_plane(nx, ny, z_fn, x0=0.0):
+    """Triangulated grid plane (verts, faces): ``tests/test_segmentator.py``'s
+    mesh, copied because importing that module loads the JAX library in its
+    package directory."""
+    xs, ys = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    verts = np.stack(
+        [x0 + xs.ravel().astype(np.float32), ys.ravel().astype(np.float32),
+         z_fn(xs.ravel(), ys.ravel()).astype(np.float32)], 1)
+    faces = []
+    for i in range(nx - 1):
+        for j in range(ny - 1):
+            a = i * ny + j
+            b = (i + 1) * ny + j
+            faces.append([a, b, a + 1])
+            faces.append([b, b + 1, a + 1])
+    return verts, np.asarray(faces, np.int32)
 
 
 def assert_trees_equal(mine, ref):

@@ -162,6 +162,82 @@ def stripe_superpoints(points: np.ndarray, size: int) -> np.ndarray:
     return sp
 
 
+REFERENCE_SCALE_POINTS = (52_000, 96_000, 147_000, 180_000, 190_000)
+
+
+def reference_scale_scenes() -> list:
+    """A validation-size mix of ScanNet scans (52k-190k points; S3DIS caps
+    its scenes at 180k) as collate's samples: synthetic_scene(n, seed=100 +
+    i), superpoints from the x-rank // 64, dataset 0 (the JAX package's
+    ``tests/test_reference_scale_budgets.py`` mix)."""
+    samples = []
+    for i, n in enumerate(REFERENCE_SCALE_POINTS):
+        pts = synthetic_scene(n, seed=100 + i)
+        sp = (np.argsort(np.argsort(pts[:, 0], kind="stable")) // 64).astype(np.int64)
+        samples.append({"points": pts, "dataset_idx": 0, "sp_pts_mask": sp})
+    return samples
+
+
+def coherent_scene(name: str, seed: int = 0, sp_per_inst: int = 4, n_bg_sp: int = 18,
+                   inst_points: int = 300, bg_points: int = 1100) -> dict:
+    """A geometrically coherent ScanNet scene for `write_info_dataset`: 3
+    compact, well-separated box-volume instances of `inst_points` points
+    each (raw nyu40 ids 3 + i, labels i), each split by x-rank into
+    `sp_per_inst` superpoints that lie inside it, and `bg_points` of floor
+    and one wall (nyu40 ids 1-2) in `n_bg_sp` x-bands of superpoints, in a
+    5 m room; colors in [0, 255]. Every superpoint belongs to one instance or
+    to the background, so a model can learn which superpoints form each
+    instance: the data that an overfitting check needs. With the default
+    sizes it is the JAX package's ``tests/test_data_pipeline.py::
+    make_coherent_scene`` for the same seed (the same draws, the same
+    files)."""
+    n_inst = 3
+    rng = np.random.RandomState(seed)
+    centers = np.array([[1.2, 1.2, 0.8], [3.6, 1.4, 0.7], [2.3, 3.7, 0.9]], np.float32
+                       ) + rng.uniform(-0.2, 0.2, (n_inst, 3)).astype(np.float32)
+    sizes = np.array([[1.2, 1.0, 1.4], [1.0, 1.3, 1.1], [1.4, 1.1, 0.9]], np.float32)
+    pts, inst, sem, sp = [], [], [], []
+    for i in range(n_inst):
+        p = (rng.rand(inst_points, 3).astype(np.float32) - 0.5) * sizes[i]
+        p += centers[i]
+        pts.append(p)
+        inst.append(np.full(inst_points, i, np.int64))
+        sem.append(np.full(inst_points, 3 + i, np.int64))
+        ids = np.empty(inst_points, np.int64)
+        ids[np.argsort(p[:, 0])] = np.arange(inst_points) * sp_per_inst // inst_points
+        sp.append(i * sp_per_inst + ids)
+    bg = rng.rand(bg_points, 3).astype(np.float32) * 5.0
+    bg[: bg_points // 2, 2] = rng.rand(bg_points // 2).astype(np.float32) * 0.05
+    bg[bg_points // 2:, 1] = rng.rand(bg_points - bg_points // 2).astype(np.float32) * 0.05
+    pts.append(bg)
+    inst.append(np.full(bg_points, -1, np.int64))
+    sem.append(rng.randint(1, 3, bg_points).astype(np.int64))
+    cell = np.clip((bg[:, 0] * 0.999 // (5.0 / n_bg_sp)), 0, n_bg_sp - 1)
+    sp.append(n_inst * sp_per_inst + cell.astype(np.int64))
+
+    xyz = np.concatenate(pts)
+    points = np.zeros((len(xyz), 6), np.float32)
+    points[:, :3] = xyz
+    points[:, 3:] = rng.randint(0, 255, (len(xyz), 3))
+    inst = np.concatenate(inst)
+    boxes = []
+    for i in range(n_inst):
+        lo, hi = xyz[inst == i].min(0), xyz[inst == i].max(0)
+        boxes.append(np.concatenate([(lo + hi) / 2, hi - lo]))
+    return dict(name=name, points=points, instance_mask=inst,
+                semantic_mask=np.concatenate(sem), super_points=np.concatenate(sp),
+                axis_align_matrix=np.eye(4), boxes=np.asarray(boxes, np.float32).reshape(-1, 6),
+                labels=np.arange(n_inst))
+
+
+def write_coherent_dataset(root: str, n_scenes: int = 4, **sizes) -> str:
+    """`n_scenes` coherent scenes (``coherent_scene``, seeds 0..n_scenes-1,
+    named scene<i>) written under `root` with the info file infos.pkl;
+    returns its path."""
+    return write_info_dataset(
+        root, [coherent_scene(f"scene{i}", seed=i, **sizes) for i in range(n_scenes)])
+
+
 def write_info_dataset(root: str, scenes, ann_file: str = "infos.pkl") -> str:
     """Writes `scenes` under `root` in the reference's info format (the one
     ``data/datasets.py::IndoorDataset`` reads) and returns the info file's

@@ -5,7 +5,8 @@ may include the shared headers ``csrc/*.cuh``), compiled for Hopper
 (``sm_90a``) into ``build/lib<name>-<hash>.so`` at the repository root the
 first time it is needed. The hash covers the source, the headers and the
 flags, so an edited source or header is rebuilt and a stale library never
-loads.
+loads. Builds are safe to start at once from several threads (one lock per
+process) and several processes (a temporary name unique per build).
 Nothing here runs at import time: the CPU tests import every module on a
 host without nvcc.
 """
@@ -18,6 +19,8 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -29,6 +32,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+_LOCK = threading.Lock()  # one build() at a time in this process
 
 
 def _nvcc() -> str:
@@ -56,27 +60,40 @@ def library_path(name: str) -> Path:
 def build(names=KERNELS) -> dict:
     """Compile every kernel in `names` that is not built yet, all nvcc
     processes at once. Returns {name: ptxas report} for the ones built here;
-    raises with the compiler's output if any build fails."""
-    jobs = {}
-    for name in names:
-        lib = library_path(name)
-        if lib.exists():
-            continue
+    raises with the compiler's output if any build fails. Each library is
+    written under a temporary name unique to its build and renamed; a thread
+    that waited for another's build finds those libraries built."""
+    with _LOCK:
+        todo = [(name, library_path(name)) for name in names]
+        todo = [(name, lib) for name, lib in todo if not lib.exists()]
+        if not todo:
+            return {}
+        nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        jobs[name] = (proc, tmp, lib)
-    reports, failed = {}, []
-    for name, (proc, tmp, lib) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, lib)
-        reports[name] = log
+        tmps, jobs, reports, failed = [], {}, {}, []
+        try:
+            for name, lib in todo:
+                fd, tmp = tempfile.mkstemp(prefix=f"{lib.name}.", suffix=".tmp", dir=BUILD_DIR)
+                os.close(fd)
+                tmps.append(tmp)
+                cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+                jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True), tmp, lib)
+            for name, (proc, tmp, lib) in jobs.items():
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed for {name}.cu:\n{log}")
+                    continue
+                os.replace(tmp, lib)
+                reports[name] = log
+        finally:
+            for proc, _, _ in jobs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for tmp in tmps:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
     if failed:
         raise RuntimeError("\n".join(failed))
     return reports
