@@ -6,9 +6,11 @@ the JAX package's eval path on one CPU device (its ``EvalLoader`` groups,
 JAX model's weights carried over by ``weights.from_flax``: the same per-scene
 detections and the same mAP dict. Then an oracle model that turns each scene's
 ground truth into its detections gives mAP 1.0 through the whole loop, and a
-padded final group is counted once. ``build_model`` / ``build_datasets``
-follow the JAX package's."""
+padded final group is counted once, and the loop's spans cover each group
+once (``wait_s`` their ``eval.wait`` seconds). ``build_model`` /
+``build_datasets`` follow the JAX package's."""
 import dataclasses
+import logging
 import types
 
 import jax
@@ -34,7 +36,7 @@ from unidet3d_tpu_torch.data.synthetic import (
     synthetic_scene,
     write_info_dataset,
 )
-from unidet3d_tpu_torch.train import loop
+from unidet3d_tpu_torch.train import loop, profiling
 from unidet3d_tpu_torch.train.metric import IndoorMetric
 from unidet3d_tpu_torch.weights import from_flax
 
@@ -242,6 +244,52 @@ def test_oracle_through_evaluate_gives_map_one(roots):
             assert r[f"{c}_AP_0.25"] == pytest.approx(1.0, abs=1e-9), (name, c)
             assert r[f"{c}_AP_0.50"] == pytest.approx(1.0, abs=1e-9), (name, c)
         assert r["mAP_0.25"] == pytest.approx(1.0, abs=1e-9)
+
+
+class EvalStats(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.stats = []
+
+    def emit(self, record):
+        if hasattr(record, "eval_stats"):
+            self.stats.append(record.eval_stats)
+
+
+def test_evaluate_spans_each_group_once(roots):
+    exp, _ = experiments(roots)
+    exp = dataclasses.replace(exp, eval_batch_size=4)
+    logger, handler = logging.getLogger("unidet3d_tpu_torch"), EvalStats()
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    before = profiling.SPANS.snapshot()
+    try:
+        loop.evaluate(exp, OracleModel(exp.model, 17), device="cpu", logger=lambda *a: None)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    after = profiling.SPANS.snapshot()
+    count = {k: c - before.get(k, (0, 0.0))[0] for k, (c, _) in after.items()}
+    stats = handler.stats
+    assert [(st["dataset"], st["groups"]) for st in stats] == [("scannet", 3), ("arkitscenes", 1)]
+    for name in ("eval.wait", "eval.forward", "eval.post", "eval.fetch", "eval.metric"):
+        assert count[name] == 4, name
+    assert count["eval.open"] == 1 + len(stats)  # the datasets, then each loader
+    assert count["eval.compute"] == 1
+    # One NMS per scene slot of a group, padded slots too; trimming where the
+    # dataset uses superpoints (ScanNet, not ARKitScenes).
+    assert count["post.nms"] == 4 * 4
+    assert count["post.trim"] == 3 * 4
+    assert profiling.SPANS.since(before, after)["eval.wait"] == pytest.approx(
+        sum(w for st in stats for w in st["wait_s"]), rel=1e-9, abs=1e-12)
+    for st in stats:
+        assert len(st["wait_s"]) == st["groups"]
+        assert st["span_s"]["eval.wait"] == pytest.approx(sum(st["wait_s"]), rel=1e-9,
+                                                          abs=1e-12)
+        assert {"eval.open", "eval.forward", "eval.post", "post.nms", "eval.fetch",
+                "eval.metric", "loader.pipeline"} <= set(st["span_s"])
+        assert "eval.compute" not in st["span_s"]
 
 
 def test_at_capacities_shares_the_weights(roots):

@@ -2,10 +2,12 @@
 package's: TrainLoader batches (every PointBatch / GTBatch array and the
 GridPack tables) for one seed, whatever the thread count; EvalLoader's order,
 groups, n_real and bucket configs, with the JAX package's ``_bucket_cfg``
-cases; worker errors raised in the consumer; CPU tensors with device="cpu"."""
+cases; worker errors raised in the consumer; CPU tensors with device="cpu";
+``WorkerTimes`` are the seconds of the ``loader.*`` spans."""
 import dataclasses
 import os
 import pickle
+import threading
 
 import numpy as np
 import pytest
@@ -20,11 +22,14 @@ from unidet3d_tpu_torch.core.config import default_config
 from unidet3d_tpu_torch.data import datasets, pipelines
 from unidet3d_tpu_torch.data.batcher import map_arrays
 from unidet3d_tpu_torch.data.loader import (
+    DeviceStager,
     EvalLoader,
     TrainLoader,
+    _build,
     capacity_buckets,
     superpoint_buckets,
 )
+from unidet3d_tpu_torch.train import profiling
 
 SMALL = dict(max_points=2048, voxel_capacity=2048, max_superpoints=48, max_gts=8,
              num_planes=(8, 16, 24))
@@ -288,3 +293,30 @@ def test_train_loader_stress_many_threads(roots):
             for name in a._fields:
                 np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
                                               err_msg=f"batch {n}: {name}")
+
+
+def test_worker_times_are_the_loader_spans(roots, monkeypatch):
+    """_build's WorkerTimes are the seconds of its four loader.* spans, and
+    EvalLoader's length is the number of groups it yields."""
+    parts = ("pipeline", "collate", "pack", "stage")
+    cfg = default_config(**SMALL)
+    ds = make_concat(datasets, pipelines, roots[:1], train=False)
+    one = profiling.SpanTotals()
+    monkeypatch.setattr(profiling, "SPANS", one)
+    times = []
+    _build(lambda: [ds[0], ds[1]], cfg, None, DeviceStager("cpu"), times)
+    (t,) = times
+    assert {f"loader.{p}": (1, getattr(t, p)) for p in parts} == one.snapshot()
+    assert t.thread == threading.current_thread().name
+
+    many = profiling.SpanTotals()
+    monkeypatch.setattr(profiling, "SPANS", many)
+    loader = EvalLoader(ds, cfg, 2, num_threads=2, device="cpu")
+    groups = list(loader)
+    times = list(loader.times)
+    assert len(loader) == len(groups) == len(times) == 2
+    snap = many.snapshot()
+    for p in parts:
+        count, seconds = snap[f"loader.{p}"]
+        assert count == len(times)
+        assert seconds == pytest.approx(sum(getattr(w, p) for w in times), rel=1e-9)

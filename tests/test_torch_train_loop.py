@@ -11,6 +11,8 @@ ARKitScenes scenes, narrow widths, fp32):
     ``test_torch_train_slice.py`` holds against the JAX step); its
     checkpoints at steps 2 and 4 hold those states;
   * collate's drops raise the interval's warning;
+  * a step opens its span and each of its four children once, and the
+    interval records carry the seconds of the spans closed in them;
   * ``resume="auto"`` starts at epoch 2 with optimizer count 2, and, as in
     the JAX loop, restarts the loader at batch 1 and the generator at seed + 1;
   * ``load_from`` with prefix ``backbone`` (a converted reference
@@ -48,7 +50,7 @@ from unidet3d_tpu_torch.parallel.train_step import make_train_step
 from unidet3d_tpu_torch.tools import convert_checkpoint
 from unidet3d_tpu_torch.tools import test as test_cli
 from unidet3d_tpu_torch.tools import train as train_cli
-from unidet3d_tpu_torch.train import loop
+from unidet3d_tpu_torch.train import loop, profiling
 from unidet3d_tpu_torch.train.checkpoint import CheckpointManager, save_params
 from unidet3d_tpu_torch.train.optim import make_optimizer
 from unidet3d_tpu_torch.weights import seeded_init_
@@ -220,6 +222,33 @@ def test_train_equals_the_steps_taken_by_hand(trained):
     vals = trained["rec"].stats("val")
     assert [v["epoch"] for v in vals] == [1, 2]  # validation between the epochs changed nothing
     assert set(vals[0]["results"]) == {"multiscan", "arkitscenes"}
+
+
+STEP_PARTS = ("step.forward", "step.loss", "step.backward", "step.optimizer")
+
+
+def test_step_opens_its_span_and_four_children_once(roots, tmp_path):
+    exp = experiment(roots, tmp_path)
+    before = profiling.SPANS.snapshot()
+    by_hand(exp, [1])
+    after = profiling.SPANS.snapshot()
+    count = {k: c - before.get(k, (0, 0.0))[0] for k, (c, _) in after.items()}
+    assert [count.get(k, 0) for k in ("step",) + STEP_PARTS] == [1] * 5
+    seconds = profiling.SPANS.since(before, after)
+    assert seconds["step"] >= sum(seconds[k] for k in STEP_PARTS) - 1e-9
+
+
+def test_train_stats_carry_the_span_seconds(trained):
+    intervals = trained["rec"].stats("interval")
+    assert len(intervals) == 4
+    for st in intervals:
+        span_s = st["span_s"]
+        assert {"train.wait", "step"} | set(STEP_PARTS) <= set(span_s)
+        assert span_s["step"] >= sum(span_s[k] for k in STEP_PARTS) - 1e-9
+        assert all(v >= 0 for v in span_s.values())
+        # Validation and checkpoints fall between epochs, outside every interval.
+        assert not any(k.startswith("eval.") or k == "train.checkpoint" for k in span_s)
+    assert all(c["seconds"] > 0 for c in trained["rec"].stats("checkpoint"))
 
 
 def test_checkpoints_hold_the_steps_and_are_kept(trained):

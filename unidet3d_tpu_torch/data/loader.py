@@ -33,6 +33,7 @@ from ..core.config import ModelConfig
 from ..device import resolve_device
 from ..models.detector import GTBatch, PointBatch
 from ..ops.gridpack import GridPack
+from ..train.profiling import span
 from .batcher import build_packs, collate, map_arrays
 
 
@@ -85,7 +86,8 @@ class DeviceStager:
 
 @dataclasses.dataclass
 class WorkerTimes:
-    """Seconds one worker spent on one batch, by part."""
+    """Seconds one worker spent on one batch, by part: the seconds of its
+    ``loader.*`` spans."""
     thread: str
     pipeline: float  # dataset reads and the transforms
     collate: float  # padding, subsampling, features, ground truth
@@ -105,23 +107,23 @@ class _Failed(NamedTuple):
 
 
 def _build(samples_fn, cfg, rng, stager, times, group_cfg=None):
-    """Pipeline -> collate -> rulebooks -> staging for one batch, each part
-    timed into `times`; `group_cfg(samples)` picks the batch's config (the
-    eval buckets), else `cfg`. Returns (samples, config, the collated numpy
-    (PointBatch, GTBatch, GridPack), Staged)."""
-    t0 = time.perf_counter()
-    samples = samples_fn()
-    cfg_b = cfg if group_cfg is None else group_cfg(samples)
-    t1 = time.perf_counter()
-    batch, gt, _ = collate(samples, cfg_b, rng=rng, build_rulebooks=False)
-    t2 = time.perf_counter()
-    pack = build_packs(batch.vox_src, batch.valid, cfg_b)
-    t3 = time.perf_counter()
+    """Pipeline -> collate -> rulebooks -> staging for one batch, each part a
+    span (``loader.*``) whose seconds go into `times`; `group_cfg(samples)`
+    picks the batch's config (the eval buckets), else `cfg`. Returns
+    (samples, config, the collated numpy (PointBatch, GTBatch, GridPack),
+    Staged)."""
+    with span("loader.pipeline") as pipeline:
+        samples = samples_fn()
+        cfg_b = cfg if group_cfg is None else group_cfg(samples)
+    with span("loader.collate") as collated:
+        batch, gt, _ = collate(samples, cfg_b, rng=rng, build_rulebooks=False)
+    with span("loader.pack") as packed:
+        pack = build_packs(batch.vox_src, batch.valid, cfg_b)
     host = (batch, gt, pack)
-    staged = stager.stage(host)
-    t4 = time.perf_counter()
-    times.append(WorkerTimes(threading.current_thread().name,
-                             t1 - t0, t2 - t1, t3 - t2, t4 - t3))
+    with span("loader.stage") as staging:
+        staged = stager.stage(host)
+    times.append(WorkerTimes(threading.current_thread().name, pipeline.seconds,
+                             collated.seconds, packed.seconds, staging.seconds))
     return samples, cfg_b, host, staged
 
 
@@ -304,6 +306,10 @@ class EvalLoader:
         ]
         for t in self._threads:
             t.start()
+
+    def __len__(self) -> int:
+        """The number of groups this loader yields (this shard's)."""
+        return self._n_groups
 
     def group_indices(self, g: int) -> list:
         """The dataset indices (info-file order) of group g's real scenes, in

@@ -16,6 +16,7 @@ from ..core.boxes import get_face_distances
 from ..core.config import ModelConfig
 from ..ops.nms import greedy_nms, pairwise_iou_aa, pairwise_iou_rotated
 from ..ops.segment import segment_mean
+from ..train.profiling import span
 
 
 class SceneDetections(NamedTuple):
@@ -89,22 +90,25 @@ def predict_scene(
     point_valid: torch.Tensor,
     sp_ids: torch.Tensor,
 ) -> SceneDetections:
-    """Full single-scene post-processing."""
+    """Full single-scene post-processing; the IoU and NMS are the span
+    "post.nms", the trimming "post.trim"."""
     rotated = cfg.angles[dataset_idx]
     sel_boxes, labels, scores = select_topk_instances(
         cls_logits, boxes, query_valid, cfg.topk_insts
     )
     valid = scores > cfg.score_thr
-    iou = pairwise_iou_rotated(sel_boxes) if rotated else pairwise_iou_aa(sel_boxes)
-    keep = greedy_nms(iou, scores, labels, valid, cfg.iou_thr[dataset_idx])
+    with span("post.nms"):
+        iou = pairwise_iou_rotated(sel_boxes) if rotated else pairwise_iou_aa(sel_boxes)
+        keep = greedy_nms(iou, scores, labels, valid, cfg.iou_thr[dataset_idx])
     out_boxes = sel_boxes
     if not rotated:
         out_boxes = sel_boxes.clone()
         out_boxes[:, 6] = 0.0
     if cfg.use_superpoints[dataset_idx]:
-        out_boxes, keep = trim_boxes_by_superpoints(
-            cfg, out_boxes, keep, points, point_valid, sp_ids
-        )
+        with span("post.trim"):
+            out_boxes, keep = trim_boxes_by_superpoints(
+                cfg, out_boxes, keep, points, point_valid, sp_ids
+            )
     return SceneDetections(
         boxes=out_boxes, labels=labels, scores=scores, valid=keep
     )

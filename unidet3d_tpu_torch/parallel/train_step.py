@@ -21,6 +21,7 @@ from ..core.config import ModelConfig
 from ..models.detector import GTBatch, PointBatch, detection_loss
 from ..ops.gridpack import GridPack
 from ..train.optim import ClippedAdamW
+from ..train.profiling import span
 from .distributed import average_gradients, mean_over_group
 
 
@@ -35,20 +36,29 @@ def make_train_step(model: torch.nn.Module, cfg: ModelConfig,
     scenes without a read from the card (``detection_loss``). The model's
     parameters, running statistics and the optimizer state are updated in
     place. Both metrics are device scalars, the group's mean loss and the
-    norm of the averaged gradient, taken before clipping."""
+    norm of the averaged gradient, taken before clipping.
+
+    The step is a span ("step", keyed by the optimizer's count) whose four
+    children cover it: "step.forward", "step.loss", "step.backward" (with
+    the group's gradient and loss means) and "step.optimizer"."""
 
     def step(batch: PointBatch, gt: GTBatch, pack: GridPack,
              generator: torch.Generator | None = None,
              query_noise: torch.Tensor | None = None,
              host_dataset_ids=None) -> dict:
-        out, aux = model(batch, pack, train=True, generator=generator,
-                         query_noise=query_noise)
-        loss = detection_loss(cfg, out, aux, batch, gt, host_dataset_ids)
-        optimizer.zero_grad()
-        loss.backward()
-        average_gradients(optimizer.params)
-        loss = mean_over_group(loss.detach())
-        grad_norm = optimizer.step()
+        with span("step", optimizer.count):
+            with span("step.forward"):
+                out, aux = model(batch, pack, train=True, generator=generator,
+                                 query_noise=query_noise)
+            with span("step.loss"):
+                loss = detection_loss(cfg, out, aux, batch, gt, host_dataset_ids)
+            with span("step.backward"):
+                optimizer.zero_grad()
+                loss.backward()
+                average_gradients(optimizer.params)
+                loss = mean_over_group(loss.detach())
+            with span("step.optimizer"):
+                grad_norm = optimizer.step()
         return {"loss": loss, "grad_norm": grad_norm}
 
     return step

@@ -19,13 +19,15 @@ or in one process per card under ``torch.distributed``:
     scenes (the JAX loop evaluates on a process-local mesh for this reason).
 Every interval, epoch, checkpoint, resume, ``load_from`` and validation line
 carries its numbers as the log record's ``train_stats`` attribute (a dict
-with "kind"), and ``evaluate`` its per-dataset numbers as ``eval_stats``.
+with "kind"), and ``evaluate`` its per-dataset numbers as ``eval_stats``;
+an interval's ``train_stats`` and each ``eval_stats`` hold ``span_s``, the
+seconds of each span (``profiling.SPAN_NAMES``) closed in the process over
+that interval or dataset.
 """
 from __future__ import annotations
 
 import collections
 import copy
-import itertools
 import logging
 import os
 import statistics
@@ -52,7 +54,7 @@ from ..weights import seeded_init_
 from .checkpoint import CheckpointManager, merge_by_prefix, restore_params
 from .metric import IndoorMetric
 from .optim import make_optimizer
-from .profiling import log_memory_stats
+from .profiling import SPANS, log_memory_stats, span
 
 log = logging.getLogger("unidet3d_tpu_torch")
 
@@ -187,9 +189,11 @@ def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
     try:
         for epoch in range(start_epoch + 1, exp.epochs + 1):
             t0 = t_int = time.time()
+            mark = SPANS.snapshot()
             losses = []
             for it in range(1, exp.steps_per_epoch + 1):
-                tb = next(loader)
+                with span("train.wait", step):
+                    tb = next(loader)
                 metrics = step_fn(tb.batch, tb.gt, tb.pack, generator,
                                   host_dataset_ids=tb.host[0].dataset_ids)
                 losses.append(metrics["loss"])
@@ -202,6 +206,9 @@ def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
                     steps = it - (it - 1) // exp.log_interval * exp.log_interval
                     spstep = (now - t_int) / steps
                     t_int = now
+                    spans_now = SPANS.snapshot()
+                    span_s = SPANS.since(mark, spans_now)
+                    mark = spans_now
                     eta = int(max(exp.total_steps - step, 0) * spstep)
                     lr = optimizer.schedule(optimizer.count - 1)
                     log.info(
@@ -210,7 +217,8 @@ def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
                         epoch, it, exp.steps_per_epoch, loss, ema, lr, spstep,
                         exp.batch_size / spstep, eta // 3600, eta % 3600 // 60, eta % 60,
                         extra=_stats("interval", epoch=epoch, it=it, step=step, loss=loss,
-                                     ema=ema, lr=lr, steps=steps, seconds=spstep * steps))
+                                     ema=ema, lr=lr, steps=steps, seconds=spstep * steps,
+                                     span_s=span_s))
                     drops = DROPS.snapshot(reset=True)
                     if drops:
                         log.warning(
@@ -226,12 +234,12 @@ def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
                                      seconds=dt))
             log_memory_stats(f"epoch {epoch} ")
             if epoch % exp.ckpt_interval_epochs == 0:
-                t = time.perf_counter()
-                path = mngr.save(step, model, optimizer)
-                dt = time.perf_counter() - t
+                with span("train.checkpoint", step) as saving:
+                    path = mngr.save(step, model, optimizer)
                 size = os.path.getsize(path)
-                log_primary("checkpoint step %d: %d bytes in %.3f s -> %s", step, size, dt,
-                            path, extra=_stats("checkpoint", step=step, bytes=size, seconds=dt))
+                log_primary("checkpoint step %d: %d bytes in %.3f s -> %s", step, size,
+                            saving.seconds, path, extra=_stats(
+                                "checkpoint", step=step, bytes=size, seconds=saving.seconds))
             if epoch in val_epochs:
                 t = time.perf_counter()
                 results = evaluate(exp, model, device=device)
@@ -273,8 +281,13 @@ def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
     group was dispatched, so that the host's metric work overlaps the card.
     In a torch.distributed run every process evaluates a strided shard of
     each dataset and the metric gathers before compute(). Each dataset's
-    scenes/s, groups per bucket, seconds the loop waited for each group and
-    the workers' seconds per group are logged (the record's `eval_stats`).
+    scenes/s, groups per bucket, seconds the loop waited for each group, the
+    workers' seconds per group and the seconds of each span over the dataset
+    (`span_s`, ``profiling.SPANS``) are logged (the record's `eval_stats`).
+    The spans "eval.open" (datasets and loaders), "eval.wait" (each group's
+    wait, of which `wait_s` holds the seconds), "eval.forward", "eval.post",
+    "eval.fetch" and "eval.metric" (the drain) and "eval.compute" (gather and
+    mAP) cover the call.
     `metric` is the IndoorMetric to fill (a new one by default); the scenes
     it holds stay readable after the call.
 
@@ -298,59 +311,64 @@ def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
         """The host half of one group: detections to numpy, into the metric
         and the visualisers."""
         nonlocal show
-        det, samples, scene_ids, didx = pending
-        boxes, labels, scores, valid = (x.cpu().numpy() for x in det)
-        for i, k in enumerate(scene_ids):
-            gt_boxes = samples[i]["gt_bboxes_3d"]
-            if gt_boxes.shape[1] == 6:
-                gt_boxes = np.concatenate(
-                    [gt_boxes, np.zeros((len(gt_boxes), 1), np.float32)], 1)
-            metric.process(didx, boxes[i], labels[i], scores[i], valid[i], gt_boxes,
-                           samples[i]["gt_labels_3d"])
-            if not (show or show_dir):
-                continue
-            pred = boxes[i][valid[i].astype(bool)]
-            points = np.asarray(samples[i]["points"], np.float32)
-            if show_dir:
-                show_result(show_dir, f"{cfg.datasets[didx]}_scene{k:05d}", points,
-                            gt_boxes, pred)
-            if show:
-                try:
-                    show_online(points, pred)
-                except ImportError as e:
-                    log.warning("show disabled: %s", e)
-                    show = False
+        det, samples, scene_ids, didx, g = pending
+        with span("eval.fetch", g):
+            boxes, labels, scores, valid = (x.cpu().numpy() for x in det)
+        with span("eval.metric", g):
+            for i, k in enumerate(scene_ids):
+                gt_boxes = samples[i]["gt_bboxes_3d"]
+                if gt_boxes.shape[1] == 6:
+                    gt_boxes = np.concatenate(
+                        [gt_boxes, np.zeros((len(gt_boxes), 1), np.float32)], 1)
+                metric.process(didx, boxes[i], labels[i], scores[i], valid[i], gt_boxes,
+                               samples[i]["gt_labels_3d"])
+                if not (show or show_dir):
+                    continue
+                pred = boxes[i][valid[i].astype(bool)]
+                points = np.asarray(samples[i]["points"], np.float32)
+                if show_dir:
+                    show_result(show_dir, f"{cfg.datasets[didx]}_scene{k:05d}", points,
+                                gt_boxes, pred)
+                if show:
+                    try:
+                        show_online(points, pred)
+                    except ImportError as e:
+                        log.warning("show disabled: %s", e)
+                        show = False
 
     was_training = model.training
     model.eval()
     pending = None
     n_scenes = 0
     t_all = time.time()
+    mark = SPANS.snapshot()
     try:
-        for ds in build_datasets(exp, "val"):
+        with span("eval.open"):
+            datasets = build_datasets(exp, "val")
+        for ds in datasets:
             didx = ds.dataset_idx
-            loader = EvalLoader(ds, cfg, eval_bs, shard_idx=rank, shard_count=world,
-                                num_threads=num_threads, device=device)
+            with span("eval.open"):
+                loader = EvalLoader(ds, cfg, eval_bs, shard_idx=rank, shard_count=world,
+                                    num_threads=num_threads, device=device)
             buckets = collections.Counter()
             waits = []
             n_ds = 0
             t0 = time.time()
             groups = iter(loader)
-            for g in itertools.count():
-                t_wait = time.perf_counter()
-                try:
+            for g in range(len(loader)):
+                with span("eval.wait", g) as wait:
                     samples, batch, _, pack, n_real, cfg_b = next(groups)
-                except StopIteration:
-                    break
-                waits.append(time.perf_counter() - t_wait)
+                waits.append(wait.seconds)
                 with torch.no_grad():
-                    out, aux = at_capacities(model, cfg_b)(batch, pack)
-                    det = predict_batch(cfg_b, didx, out.cls_logits[-1], out.boxes[-1],
-                                        aux.query_valid, batch.points, batch.valid,
-                                        batch.sp_ids)
+                    with span("eval.forward", g):
+                        out, aux = at_capacities(model, cfg_b)(batch, pack)
+                    with span("eval.post", g):
+                        det = predict_batch(cfg_b, didx, out.cls_logits[-1], out.boxes[-1],
+                                            aux.query_valid, batch.points, batch.valid,
+                                            batch.sp_ids)
                 if pending is not None:
                     drain(pending)
-                pending = (det, samples, loader.group_indices(g), didx)
+                pending = (det, samples, loader.group_indices(g), didx, g)
                 buckets[(cfg_b.max_points, cfg_b.max_superpoints)] += 1
                 n_ds += n_real
             if pending is not None:
@@ -359,13 +377,16 @@ def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
             dt = max(time.time() - t0, 1e-9)
             n_scenes += n_ds
             times = list(loader.times)
+            spans_now = SPANS.snapshot()
             stats = dict(
                 dataset=cfg.datasets[didx], scenes=n_ds, groups=sum(buckets.values()),
                 seconds=dt, buckets=dict(buckets), wait_s=waits,
                 worker_s={part: statistics.median(getattr(t, part) for t in times)
                           for part in ("pipeline", "collate", "pack", "stage")}
                 if times else {},
+                span_s=SPANS.since(mark, spans_now),
             )
+            mark = spans_now
             log.info("eval %s: %d scenes, %d groups in %.2f s (%.2f scenes/s); "
                      "groups per (max_points, max_superpoints) bucket %s",
                      stats["dataset"], n_ds, stats["groups"], dt, n_ds / dt,
@@ -374,5 +395,6 @@ def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
         model.train(was_training)
     dt = max(time.time() - t_all, 1e-9)
     log.info("eval: %d scenes in %.1f s (%.2f scenes/s)", n_scenes, dt, n_scenes / dt)
-    metric.gather_across_processes()
-    return metric.compute(logger=logger if logger is not None else print)
+    with span("eval.compute"):
+        metric.gather_across_processes()
+        return metric.compute(logger=logger if logger is not None else print)

@@ -1,11 +1,13 @@
-"""Profiling and observability helpers, the port of the JAX package's
-``train/profiling.py``:
+"""Spans and memory statistics, the port's observability helpers:
 
-  * ``StepTimer``: EMA step time and ETA (copied as it is);
-  * ``trace(logdir)``: ``torch.profiler`` over the block (CPU, and CUDA when
-    a card is present), written as a Chrome trace into `logdir`;
-  * ``annotate(name)``: a named range in that trace
-    (``torch.profiler.record_function``);
+  * ``span(name, key=None)``: a named stretch of host time at a layer
+    boundary of the program (``SPAN_NAMES``). On exit it adds its count and
+    seconds to ``SPANS``, the process-wide totals, and exposes its own
+    ``seconds``. While a profiler runs it is also a
+    ``torch.profiler.record_function`` range, so that the profiler's trace
+    holds it on the same clock as the kernels;
+  * ``SPANS``: cumulative counts and seconds per span name, never reset: a
+    consumer subtracts an earlier ``snapshot()`` (``since``);
   * ``device_memory_stats()``: ``torch.cuda.memory_stats`` per card, ``{}``
     without one;
   * ``log_memory_stats(prefix)``: allocated and reserved bytes per card. It
@@ -14,58 +16,94 @@
 """
 from __future__ import annotations
 
-import contextlib
 import logging
-import os
+import threading
 import time
 
 import torch
 
 log = logging.getLogger("unidet3d_tpu_torch")
 
-
-class StepTimer:
-    def __init__(self, ema: float = 0.98):
-        self.ema = ema
-        self._avg = None
-        self._last = None
-
-    def tick(self) -> float | None:
-        """Call once per step; returns smoothed step time (s) or None."""
-        now = time.perf_counter()
-        if self._last is None:
-            self._last = now
-            return None
-        dt = now - self._last
-        self._last = now
-        self._avg = dt if self._avg is None else (
-            self.ema * self._avg + (1 - self.ema) * dt
-        )
-        return self._avg
-
-    def eta(self, steps_left: int) -> float | None:
-        return None if self._avg is None else self._avg * steps_left
+# Every span the program opens, by layer. Children lie inside their parent:
+# post.* inside eval.post, step.* inside step.
+SPAN_NAMES = (
+    # data/loader.py::_build, on the loaders' worker threads
+    "loader.pipeline", "loader.collate", "loader.pack", "loader.stage",
+    # train/loop.py::evaluate (and models/postprocess.py), on its thread
+    "eval.open", "eval.wait", "eval.forward", "eval.post", "post.trim", "post.nms",
+    "eval.fetch", "eval.metric", "eval.compute",
+    # parallel/train_step.py::make_train_step
+    "step", "step.forward", "step.loss", "step.backward", "step.optimizer",
+    # train/loop.py::train
+    "train.wait", "train.checkpoint",
+)
+_KNOWN = frozenset(SPAN_NAMES)
 
 
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Profile the block: ``with trace('traces/'): step()`` writes
-    ``logdir/trace-<pid>-<ns>.json`` (open it in Perfetto or
-    chrome://tracing) and yields the profiler."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    path = os.path.join(logdir, f"trace-{os.getpid()}-{time.time_ns()}.json")
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(path)
-    log.info("profiler trace written to %s", path)
+class SpanTotals:
+    """Thread-safe cumulative {name: [count, seconds]}."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._totals: dict = {}
+
+    def add(self, name: str, seconds: float) -> None:
+        with self._lock:
+            t = self._totals.setdefault(name, [0, 0.0])
+            t[0] += 1
+            t[1] += seconds
+
+    def snapshot(self) -> dict:
+        """{name: (count, seconds)} of every span closed so far."""
+        with self._lock:
+            return {k: (c, s) for k, (c, s) in self._totals.items()}
+
+    def since(self, before: dict, after: dict | None = None) -> dict:
+        """{name: seconds} of the spans closed after the snapshot `before`
+        (and up to the snapshot `after`, else up to now)."""
+        out = {}
+        for name, (count, seconds) in (self.snapshot() if after is None else after).items():
+            c0, s0 = before.get(name, (0, 0.0))
+            if count > c0:
+                out[name] = seconds - s0
+        return out
 
 
-def annotate(name: str):
-    """A named range on the profiler's host timeline (and its kernels')."""
-    return torch.profiler.record_function(name)
+# Process-global instance: loader threads, the loops and the step share it.
+SPANS = SpanTotals()
+
+
+class span:
+    """``with span("eval.post", key=g) as s: ...``; ``s.seconds`` after the
+    block. `key` (a group index, a step number) becomes the profiler range's
+    args. With no profiler running the cost is two clock reads and one
+    locked add."""
+
+    __slots__ = ("name", "key", "seconds", "_t0", "_range")
+
+    def __init__(self, name: str, key=None):
+        if name not in _KNOWN:
+            raise ValueError(f"unknown span {name!r}; SPAN_NAMES lists {SPAN_NAMES}")
+        self.name = name
+        self.key = key
+        self.seconds = None
+        self._range = None
+
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(
+                self.name, None if self.key is None else str(self.key))
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        SPANS.add(self.name, self.seconds)
+        return False
 
 
 def device_memory_stats() -> dict:
