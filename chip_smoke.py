@@ -26,12 +26,21 @@ Phases (any failure raises and the script exits non-zero):
      B=4, H=8, Q=3072, head dim 32, bf16, with and without the logsumexp
      (the same o), bit-equal on a second launch, with its registers, spills
      and shared memory;
+  4a. [sp-trim]: the superpoint trimming kernel (csrc/sp_trim.cu) against
+     its plain version, trim_boxes_by_superpoints, bit for bit at the eval
+     path's shapes (data/synthetic.py::trim_group: 4 scenes of 196,608
+     slots with 52k-190k valid, K 1000, S 3072, superpoints of 64 points,
+     fractions at both thresholds), bit-equal on a second launch, its ms
+     per group of 4 (one launch for the group, as predict_batch makes it)
+     beside its bound and the plain version's, and its registers, spills
+     and shared memory;
   5. the whole eval forward on the card (through K1 and K3) against the same
      forward on the CPU (plain versions), fp32, one 16k-point scene;
   6. the production eval path at full width, bf16: collate (native
      rulebooks) -> to_device ->
      forward -> predict_batch on the 4 scenes, with the kernel launches of
-     one run counted (37 K1 and 6 K3 per forward, no probe) and the warm
+     one run counted (37 K1 and 6 K3 per forward, no probe, one trimming
+     launch per group) and the warm
      group time, then one group under torch.profiler (device time by kernel,
      idle share);
   7. [prod-rot]: phase 6 on 4 synthetic ARKitScenes scenes (dataset 5,
@@ -227,10 +236,12 @@ from unidet3d_tpu_torch.data.datasets import ConcatDataset, IndoorDataset
 from unidet3d_tpu_torch.data.loader import TrainLoader
 from unidet3d_tpu_torch.data.synthetic import (
     REFERENCE_SCALE_POINTS,
+    TRIM_VALID,
     reference_scale_scenes,
     reference_state_dict,
     stripe_superpoints,
     synthetic_scene,
+    trim_group,
     write_coherent_dataset,
     write_info_dataset,
 )
@@ -245,7 +256,11 @@ from unidet3d_tpu_torch.models.detector import (
     scene_flags,
 )
 from unidet3d_tpu_torch.models.decoder import NEG_INF
-from unidet3d_tpu_torch.models.postprocess import predict_batch, select_topk_instances
+from unidet3d_tpu_torch.models.postprocess import (
+    predict_batch,
+    select_topk_instances,
+    trim_boxes_by_superpoints,
+)
 from unidet3d_tpu_torch.native import segmentator
 from unidet3d_tpu_torch.ops import cuda_build
 from unidet3d_tpu_torch.ops.attention import (
@@ -265,6 +280,7 @@ from unidet3d_tpu_torch.ops.gridpack import (
 from unidet3d_tpu_torch.ops.nms import pairwise_iou_aa, pairwise_iou_rotated
 from unidet3d_tpu_torch.ops.probe_conv import MODES as PROBE_MODES
 from unidet3d_tpu_torch.ops.probe_conv import probe_conv_cuda
+from unidet3d_tpu_torch.ops.sp_trim_cuda import sp_trim_cuda
 from unidet3d_tpu_torch.ops.sparse_conv import subm_conv, subm_conv_dgrad, subm_conv_wgrad
 from unidet3d_tpu_torch.ops.subm_conv_cuda import (
     conv_tile,
@@ -323,6 +339,13 @@ TRAIN_LAUNCHES = dict(NO_LAUNCHES, subm_conv=37, subm_conv_dgrad=36, subm_conv_w
                       flash_attention=6, flash_attention_dkv=6, flash_attention_dq=6)
 # exp2 results per clock per SM of the special-function units (sm_90).
 SFU_EXP_PER_CLOCK = 16
+# fp32 lanes per SM (sm_90), and the fp32 operations superpoint trimming
+# needs per (valid point, box) pair at yaw 0, the inside test: 3
+# subtractions for the shift, 6 additions for the face distances and 6
+# comparisons (the count and the min / max are taken by the inside pairs
+# alone, a few in a hundred).
+FP32_LANES = 128
+TRIM_OPS_PER_PAIR = 15
 # The fp32 card training step against the CPU's, per gradient tensor. Runs
 # of the card step with PyTorch's default algorithms (atomic sums) differ from
 # each other in the backbone's gradients about 300x more, relative to the
@@ -645,6 +668,59 @@ def phase_attention(n_valid, s, card, backward, ptxas=()):
     return out
 
 
+def phase_sp_trim(card, ptxas=()):
+    """[sp-trim]: the trimming kernel against trim_boxes_by_superpoints (on
+    the card, scene by scene) at the eval path's shapes, yaw 0, bit for bit
+    and again on a second launch, then its ms per group of 4 (CUDA events;
+    one launch for the group, as predict_batch makes it), the plain
+    version's, and its bound: the inside test of every (valid point, box)
+    pair over the fp32 lanes at the card's clock, against the bytes it must
+    read and write. Returns the `kernels` line's numbers."""
+    tag = "sp-trim"
+    cfg = default_config()
+    dev = torch.device("cuda")
+    points, valid, sp_ids, boxes = (torch.from_numpy(x).to(dev) for x in trim_group(seed=0))
+    b, p, k, s = *points.shape[:2], boxes.shape[1], cfg.max_superpoints
+    keep = torch.ones((b, k), dtype=torch.bool, device=dev)
+
+    def kernel():
+        return sp_trim_cuda(points, valid, sp_ids, boxes, s, cfg.low_sp_thr, cfg.up_sp_thr)
+
+    def plain():
+        return [trim_boxes_by_superpoints(cfg, *args)
+                for args in zip(boxes, keep, points, valid, sp_ids)]
+
+    before = sp_trim_cuda.launches
+    out, has = kernel()
+    torch.cuda.synchronize()
+    assert sp_trim_cuda.launches - before == 1
+    ref = plain()
+    assert torch.equal(has, torch.stack([r[1] for r in ref])), tag
+    assert torch.equal(out, torch.stack([r[0] for r in ref])), tag
+    again = kernel()
+    assert torch.equal(again[0], out) and torch.equal(again[1], has), tag
+    for name, stats in ptxas:
+        print(f"[{tag}] ptxas: {ptxas_line(name, stats)}")
+    ms = cuda_ms(kernel, reps=20)
+    plain_ms = cuda_ms(plain, reps=2)
+    pairs = sum(TRIM_VALID) * k
+    ops_ms = pairs * TRIM_OPS_PER_PAIR / (
+        torch.cuda.get_device_properties(0).multi_processor_count * FP32_LANES
+        * sm_clock_hz()) * 1e3
+    # Points, validity and ids read; boxes read and written, has written.
+    nbytes = b * p * (3 * 4 + 1 + 4) + b * k * (7 * 4 * 2 + 1)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    num = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    print(f"[{tag}] {b} scenes x {p} slots ({list(TRIM_VALID)} valid), K {k}, S {s}: "
+          f"equal to the plain version bit for bit ({int(has.sum())} boxes keep a point), "
+          f"and on a second launch; kernel {ms:.3f} ms plain {plain_ms:.1f} ms per group, "
+          f"bound {num['bound_ms']:.4f} ms (operations {ops_ms:.4f}: {pairs} pairs x "
+          f"{TRIM_OPS_PER_PAIR}; bytes {bytes_ms:.4f}: {nbytes}) | {card}")
+    return num
+
+
 def phase_e2e_small(table, card):
     """Card forward (kernels) vs CPU forward (plain versions), fp32."""
     n_points = 16384
@@ -683,7 +759,8 @@ def phase_production(samples, table, card, dataset_idx=0, tag="prod", reps=3):
     dataset `dataset_idx`: the kernel launches of one run counted from
     zero, its outputs checked, then its metrics (for a rotated dataset also
     the card time of pairwise_iou_rotated over the group's selected boxes).
-    Returns the counted run's device batch and decoder outputs."""
+    Returns the counted run's device batch and decoder outputs, and its
+    trimming launches."""
     cfg = default_config()  # full width, bf16, S = 3072, 163840 voxels/scene
     t0 = time.time()
     batch, _, pack = collate(samples, cfg)
@@ -701,9 +778,12 @@ def phase_production(samples, table, card, dataset_idx=0, tag="prod", reps=3):
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    trims = sp_trim_cuda.launches
     b_run, out_run, aux_run, det = run()  # the main-path run whose launches are counted
     launches = read_counts()
     assert launches == dict(NO_LAUNCHES, subm_conv=37, flash_attention=6), (tag, launches)
+    trims = sp_trim_cuda.launches - trims
+    assert trims == (1 if cfg.use_superpoints[dataset_idx] else 0), (tag, trims)
     out, aux = out_run, aux_run
     nq = cfg.max_superpoints
     assert out.cls_logits.shape == (cfg.num_layers + 1, GROUP, nq, 85)
@@ -747,7 +827,8 @@ def phase_production(samples, table, card, dataset_idx=0, tag="prod", reps=3):
           f"{statistics.median(post):.1f} ms, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB | {card}")
     print(f"[{tag}] launches per forward: K1 {launches['subm_conv']}, "
-          f"K3 {launches['flash_attention']}; detections kept {kept} | {card}")
+          f"K3 {launches['flash_attention']}, trimming {trims}; detections kept {kept} "
+          f"| {card}")
     if rotated:
         iou_ms = cuda_ms(lambda: [pairwise_iou_rotated(x) for x in det.boxes], reps=3)
         print(f"[{tag}] pairwise_iou_rotated over the group's {GROUP} x {cfg.topk_insts} "
@@ -757,7 +838,7 @@ def phase_production(samples, table, card, dataset_idx=0, tag="prod", reps=3):
                                torch.cuda.synchronize()),
                       card, f"pairwise_iou_rotated of one group ({tag})", top=6)
     phase_profile(run, card, f"one group ({tag})")
-    return b_run, out_run, aux_run
+    return (b_run, out_run, aux_run), trims
 
 
 def map_inputs(cfg, dataset_idx, out, aux, b, device):
@@ -2824,10 +2905,11 @@ def main() -> int:
     n_sp = [min(int(s["sp_pts_mask"].max()) + 1, cfg.max_superpoints) for s in samples]
     phase_attention(n_sp, cfg.max_superpoints, card, backward=False,
                     ptxas=ptxas.get("attention", ()))
+    trim = phase_sp_trim(card, ptxas=ptxas.get("sp_trim", ()))
     phase_e2e_small(table, card)
-    prod = phase_production(samples, table, card)
+    prod, trims = phase_production(samples, table, card)
     rot_samples = train_scenes(GROUP, SCENE_POINTS, 20, N_GTS, datasets=(ARKIT,) * GROUP)
-    prod_rot = phase_production(rot_samples, table, card, dataset_idx=ARKIT, tag="prod-rot")
+    prod_rot, _ = phase_production(rot_samples, table, card, dataset_idx=ARKIT, tag="prod-rot")
     phase_map([(0, samples, *prod), (ARKIT, rot_samples, *prod_rot)], card)
     del prod, prod_rot
 
@@ -2898,6 +2980,11 @@ def main() -> int:
             launches=launches[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
             plain_ms=num["plain_ms"], bound_ms=num["bound_ms"],
             bound_by=num["bound_by"], library_ms=num["library_ms"]))
+    kernels.append(dict(
+        name="sp_trim", route="cuda", source="unidet3d_tpu_torch/csrc/sp_trim.cu",
+        replaces=None, launches=trims,
+        **{key: trim[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}))
     for name, num in probe.items():
         kernels.append(dict(
             name=name, route="cuda", source="unidet3d_tpu_torch/csrc/subm_conv.cu",
@@ -2906,6 +2993,9 @@ def main() -> int:
                                          "bound_ms", "bound_by", "library_ms")}))
     print("[kernels] launches are one production training step's; ms, plain_ms, "
           "bound_ms and library_ms are per training step at its shapes (8 scenes); "
+          "sp_trim: replaces no TPU kernel, on no training path; launches from one eval "
+          "forward and post-processing of a group of 4 (phase 6), every number per group of 4 "
+          "at [sp-trim]'s shapes, no library call computes it; "
           "the attention bounds count one exp per pair at 16 per clock per SM. "
           "probe_conv_*: on no training or eval path (0 launches per step, asserted); "
           "launches from one run of the probe's modes, every number per probe call "

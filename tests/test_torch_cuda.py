@@ -4,7 +4,9 @@ K1 (conv forward), K1' (conv input gradient), K2 (conv weight gradient), K3
 backward) and the four modes of the conv-bottleneck probe, each bf16 kernel
 bit-equal on a second launch, plus the two autograd Functions against their
 CPU runs, and the host's shared-memory counts of K1 and K2 against the
-compiled kernels'.
+compiled kernels'; the superpoint trimming kernel against its plain version
+bit for bit at the eval path's shapes, and its launches through
+predict_batch.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) and nvcc; elsewhere it
 skips. Run on the card from the repository root (the JAX conftest is not
@@ -16,6 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from unidet3d_tpu_torch.core.config import default_config
+from unidet3d_tpu_torch.data.synthetic import TRIM_VALID, trim_group
+from unidet3d_tpu_torch.models import postprocess
+from unidet3d_tpu_torch.models.postprocess import predict_batch, trim_boxes_by_superpoints
 from unidet3d_tpu_torch.ops.attention import (
     FlashAttentionFunction,
     attention_bwd_plain,
@@ -27,6 +33,7 @@ from unidet3d_tpu_torch.ops.attention import (
 )
 from unidet3d_tpu_torch.ops.probe_conv import MODES as PROBE_MODES
 from unidet3d_tpu_torch.ops.probe_conv import probe_conv_cuda, probe_conv_plain
+from unidet3d_tpu_torch.ops.sp_trim_cuda import sp_trim_cuda
 from unidet3d_tpu_torch.ops.sparse_conv import subm_conv, subm_conv_dgrad, subm_conv_wgrad
 from unidet3d_tpu_torch.ops.subm_conv_cuda import (
     WGRAD_INSTANCES,
@@ -444,3 +451,96 @@ def test_wrappers_reject_bad_inputs(dev):
         flash_attention_dkv_cuda(q, q, q, seg, q, lse.half(), lse, 1.0)
     with pytest.raises(ValueError):  # do must match q
         flash_attention_dq_cuda(q, q, q, seg, q.bfloat16(), lse, lse, 1.0)
+
+
+def _trim_plain(cfg, points, valid, sp_ids, boxes):
+    """The plain version on the card, scene by scene: (B, K, 7), (B, K)."""
+    keep = torch.ones(boxes.shape[:2], dtype=torch.bool, device=boxes.device)
+    outs = [trim_boxes_by_superpoints(cfg, *args)
+            for args in zip(boxes, keep, points, valid, sp_ids)]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def test_sp_trim_kernel_matches_plain_bit_for_bit(dev):
+    """The eval path's shapes (4 scenes of 196,608 slots, 52k-190k valid,
+    K 1000, S 3072, superpoints of 64 points), yaw 0, fractions at both
+    thresholds: equal to the plain version, and on a second launch."""
+    cfg = default_config()
+    inputs = [torch.from_numpy(x).to(dev) for x in trim_group(seed=7)]
+    boxes, has = sp_trim_cuda(*inputs, cfg.max_superpoints, cfg.low_sp_thr, cfg.up_sp_thr)
+    ref_boxes, ref_has = _trim_plain(cfg, *inputs)
+    assert torch.equal(has, ref_has)
+    assert torch.equal(boxes, ref_boxes)
+    # 81 / 100 keeps its own points, 82 / 100 the whole line, 9 / 50 its
+    # own, 8 / 50 none; boxes 4-19 hold no point.
+    line = torch.tensor([[40.0, 50.0, 50.0, 80.0], [49.5, 50.0, 50.0, 99.0],
+                         [4.0, 60.0, 60.0, 8.0]], device=dev)
+    for i in range(len(TRIM_VALID)):
+        assert torch.equal(boxes[i, :3, :4], line)
+        assert not has[i, 3] and not has[i, 4:20].any()
+        assert 0.2 < has[i].float().mean() < 1.0
+    again = sp_trim_cuda(*inputs, cfg.max_superpoints, cfg.low_sp_thr, cfg.up_sp_thr)
+    assert torch.equal(again[0], boxes) and torch.equal(again[1], has)
+
+
+def test_sp_trim_kernel_with_yaw_within_tolerance(dev):
+    """Nonzero yaw (no configuration trims a rotated dataset): the kernel
+    rotates as the plain version, each product and sum rounded on its own,
+    with CUDA's cosf / sinf as torch.cos / torch.sin on the card. A point
+    within an ulp of a face may still fall on the other side if the two
+    differ in the last bit, and a whole box refits differently; so at most
+    1 % of the boxes of a scene may differ, the rest bit for bit."""
+    cfg = default_config()
+    inputs = [torch.from_numpy(x).to(dev) for x in trim_group(seed=8, yawed=True)]
+    boxes, has = sp_trim_cuda(*inputs, cfg.max_superpoints, cfg.low_sp_thr, cfg.up_sp_thr)
+    ref_boxes, ref_has = _trim_plain(cfg, *inputs)
+    differ = (has != ref_has) | (boxes != ref_boxes).any(-1)
+    print(f"yawed: boxes that differ per scene {differ.sum(-1).tolist()} of {boxes.shape[1]}")
+    assert (differ.float().mean(-1) <= 0.01).all()
+    assert has.any()
+
+
+def test_sp_trim_launches_once_per_trimmed_group(dev):
+    """predict_batch on the card: one launch for the whole group of a
+    dataset that trims (ScanNet, 0), none for ARKitScenes (5), and the same
+    detections as each scene's NMS followed by the plain version."""
+    cfg = default_config(topk_insts=300)
+    rng = np.random.RandomState(3)
+    b, q = 2, 512
+    points, valid, sp_ids, _ = (x[:b, :20000] for x in trim_group(seed=3))
+    logits = rng.randn(b, q, 85).astype(np.float32)
+    boxes = np.concatenate([points[:, :q] + rng.randn(b, q, 3).astype(np.float32) * 0.1,
+                            0.2 + rng.rand(b, q, 3), np.zeros((b, q, 1))], -1)
+    args = [torch.from_numpy(np.asarray(x)).to(dev) for x in
+            (logits, boxes.astype(np.float32), np.ones((b, q), bool), points, valid, sp_ids)]
+    before = sp_trim_cuda.launches
+    det = predict_batch(cfg, 0, *args)
+    assert sp_trim_cuda.launches - before == 1
+    predict_batch(cfg, 5, *args)
+    assert sp_trim_cuda.launches - before == 1
+    assert det.valid.any()
+    for i in range(b):  # each scene's NMS, then the plain version, on the card
+        sel, _, _, keep = postprocess._select_and_suppress(cfg, 0, *(x[i] for x in args[:3]))
+        ref_boxes, ref_keep = trim_boxes_by_superpoints(cfg, sel, keep, *(x[i] for x in args[3:]))
+        assert torch.equal(det.valid[i], ref_keep) and torch.equal(det.boxes[i], ref_boxes)
+
+
+def test_sp_trim_wrapper_rejects_bad_inputs(dev):
+    pts = torch.zeros(1, 10, 3, device=dev)
+    valid = torch.ones(1, 10, dtype=torch.bool, device=dev)
+    sp = torch.zeros(1, 10, dtype=torch.int32, device=dev)
+    boxes = torch.zeros(1, 4, 7, device=dev)
+    bad = [
+        (pts.half(), valid, sp, boxes),  # points not fp32
+        (pts, valid, sp.long(), boxes),  # ids not int32
+        (pts, valid, sp, boxes[:, :, :6]),  # not (B, K, 7)
+        (pts, valid.cpu(), sp, boxes),  # another device
+        (pts.cpu(), valid.cpu(), sp.cpu(), boxes.cpu()),  # the CPU
+        (torch.zeros(1, 3, 10, device=dev).transpose(1, 2), valid, sp, boxes),  # strided
+        (pts, valid, sp, torch.zeros(1, 7, 4, device=dev).transpose(1, 2)),  # strided
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            sp_trim_cuda(*args, 8, 0.18, 0.81)
+    with pytest.raises(ValueError):  # no superpoint
+        sp_trim_cuda(pts, valid, sp, boxes, 0, 0.18, 0.81)

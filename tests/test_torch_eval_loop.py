@@ -277,10 +277,10 @@ def test_evaluate_spans_each_group_once(roots):
         assert count[name] == 4, name
     assert count["eval.open"] == 1 + len(stats)  # the datasets, then each loader
     assert count["eval.compute"] == 1
-    # One NMS per scene slot of a group, padded slots too; trimming where the
-    # dataset uses superpoints (ScanNet, not ARKitScenes).
+    # One NMS per scene slot of a group, padded slots too; one trimming per
+    # group where the dataset uses superpoints (ScanNet, not ARKitScenes).
     assert count["post.nms"] == 4 * 4
-    assert count["post.trim"] == 3 * 4
+    assert count["post.trim"] == 3
     assert profiling.SPANS.since(before, after)["eval.wait"] == pytest.approx(
         sum(w for st in stats for w in st["wait_s"]), rel=1e-9, abs=1e-12)
     for st in stats:

@@ -178,6 +178,49 @@ def reference_scale_scenes() -> list:
     return samples
 
 
+# Superpoint trimming's group at the eval path's shapes: valid points of its
+# 4 scenes, point slots (the bucket's max_points), boxes (topk_insts) and
+# superpoints (max_superpoints).
+TRIM_VALID = (52_000, 96_000, 147_000, 190_000)
+TRIM_SLOTS, TRIM_BOXES, TRIM_SUPERPOINTS = 196_608, 1000, 3072
+
+
+def trim_group(seed: int = 0, yawed: bool = False):
+    """Superpoint trimming's inputs at the eval path's shapes: a group of 4
+    scenes of TRIM_SLOTS point slots with TRIM_VALID valid (synthetic scans,
+    superpoints of 64 points by x-rank), TRIM_BOXES boxes around valid
+    points, and s = TRIM_SUPERPOINTS. Each scene also holds two line
+    superpoints (ids s - 2, s - 1) of 100 and 50 points with boxes 0-3 over
+    exactly 81 and 82 of the 100 and 9 and 8 of the 50 (the vote's fractions
+    at its thresholds 0.81 and 0.18), boxes 4-19 far from every point, and
+    invalid slots at random places with random ids up to s + 7. Yaw 0
+    unless `yawed`. Returns numpy (points (4, P, 3) float32, valid (4, P)
+    bool, sp_ids (4, P) int32, boxes (4, K, 7) float32)."""
+    rng = np.random.RandomState(seed)
+    b, slots, k, s = len(TRIM_VALID), TRIM_SLOTS, TRIM_BOXES, TRIM_SUPERPOINTS
+    points = (rng.rand(b, slots, 3) * 8).astype(np.float32)
+    valid = np.zeros((b, slots), bool)
+    sp_ids = rng.randint(0, s + 8, (b, slots)).astype(np.int32)
+    boxes = np.zeros((b, k, 7), np.float32)
+    x = np.arange(150.0) - np.r_[np.zeros(100), np.full(50, 100.0)]
+    yz = np.r_[np.full(100, 50.0), np.full(50, 60.0)]
+    line = np.stack([x, yz, yz], 1)
+    for i, n in enumerate(TRIM_VALID):
+        pts = synthetic_scene(n - len(line), seed=seed + i)[:, :3]
+        points[i, :n] = np.concatenate([pts, line])
+        valid[i, :n] = True
+        sp_ids[i, :n] = np.r_[stripe_superpoints(pts, 64), np.full(100, s - 2),
+                              np.full(50, s - 1)]
+        boxes[i, :, :3] = pts[rng.randint(0, len(pts), k)] + rng.randn(k, 3) * 0.1
+        boxes[i, :, 3:6] = 0.1 + rng.rand(k, 3) * 2
+        for j, (hi, at) in enumerate(((80.5, 50.0), (81.5, 50.0), (8.5, 60.0), (7.5, 60.0))):
+            boxes[i, j, :6] = [(hi - 0.5) / 2, at, at, hi + 0.5, 0.5, 0.5]
+        boxes[i, 4:20, :3] += 100.0
+        if yawed:
+            boxes[i, :, 6] = rng.uniform(-np.pi, np.pi, k)
+    return points, valid, sp_ids, boxes
+
+
 def coherent_scene(name: str, seed: int = 0, sp_per_inst: int = 4, n_bg_sp: int = 18,
                    inst_points: int = 300, bg_points: int = 1100) -> dict:
     """A geometrically coherent ScanNet scene for `write_info_dataset`: 3

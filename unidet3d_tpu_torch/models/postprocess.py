@@ -4,7 +4,9 @@ box trimming.
 The port of the JAX package's ``models/postprocess.py``. Predictions are
 fixed-size (topk_insts,) arrays with a validity mask; the dataset index is a
 host int per scene group, which picks the rotated (ARKitScenes) or the
-axis-aligned NMS and whether boxes are trimmed by superpoints.
+axis-aligned NMS and whether boxes are trimmed by superpoints. Trimming runs
+the card's kernel (``ops/sp_trim_cuda.py``) on CUDA tensors and
+``trim_boxes_by_superpoints``, its plain version, on CPU tensors.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from ..core.boxes import get_face_distances
 from ..core.config import ModelConfig
 from ..ops.nms import greedy_nms, pairwise_iou_aa, pairwise_iou_rotated
 from ..ops.segment import segment_mean
+from ..ops.sp_trim_cuda import sp_trim_cuda
 from ..train.profiling import span
 
 
@@ -50,7 +53,8 @@ def trim_boxes_by_superpoints(
     sp_ids: torch.Tensor,  # (P,) in [0, S)
     chunk: int = 128,
 ):
-    """Superpoint-vote box trimming, chunked over boxes.
+    """Superpoint-vote box trimming, chunked over boxes: the plain version
+    of the card's kernel (``ops/sp_trim_cuda.py``), which it must equal.
 
     Returns refitted axis-aligned (K, 7) boxes (yaw zeroed) and the updated
     validity mask (boxes that end with no inside points are dropped)."""
@@ -80,18 +84,11 @@ def trim_boxes_by_superpoints(
     return torch.cat(new_boxes), keep & torch.cat(has)
 
 
-def predict_scene(
-    cfg: ModelConfig,
-    dataset_idx: int,
-    cls_logits: torch.Tensor,  # (Q, NC+1) last decoder layer, one scene
-    boxes: torch.Tensor,  # (Q, 7)
-    query_valid: torch.Tensor,
-    points: torch.Tensor,  # (P, 3) raw
-    point_valid: torch.Tensor,
-    sp_ids: torch.Tensor,
-) -> SceneDetections:
-    """Full single-scene post-processing; the IoU and NMS are the span
-    "post.nms", the trimming "post.trim"."""
+def _select_and_suppress(cfg: ModelConfig, dataset_idx: int, cls_logits: torch.Tensor,
+                         boxes: torch.Tensor, query_valid: torch.Tensor):
+    """One scene's top-k selection and class-wise NMS (span "post.nms"):
+    its (K, 7) boxes (yaw zeroed unless the dataset is rotated), labels,
+    scores and NMS keep mask."""
     rotated = cfg.angles[dataset_idx]
     sel_boxes, labels, scores = select_topk_instances(
         cls_logits, boxes, query_valid, cfg.topk_insts
@@ -104,14 +101,23 @@ def predict_scene(
     if not rotated:
         out_boxes = sel_boxes.clone()
         out_boxes[:, 6] = 0.0
-    if cfg.use_superpoints[dataset_idx]:
-        with span("post.trim"):
-            out_boxes, keep = trim_boxes_by_superpoints(
-                cfg, out_boxes, keep, points, point_valid, sp_ids
-            )
-    return SceneDetections(
-        boxes=out_boxes, labels=labels, scores=scores, valid=keep
-    )
+    return out_boxes, labels, scores, keep
+
+
+def predict_scene(
+    cfg: ModelConfig,
+    dataset_idx: int,
+    cls_logits: torch.Tensor,  # (Q, NC+1) last decoder layer, one scene
+    boxes: torch.Tensor,  # (Q, 7)
+    query_valid: torch.Tensor,
+    points: torch.Tensor,  # (P, 3) raw
+    point_valid: torch.Tensor,
+    sp_ids: torch.Tensor,
+) -> SceneDetections:
+    """Full single-scene post-processing: predict_batch on a group of one."""
+    det = predict_batch(cfg, dataset_idx, *(x[None] for x in (
+        cls_logits, boxes, query_valid, points, point_valid, sp_ids)))
+    return SceneDetections(*(f[0] for f in det))
 
 
 def predict_batch(
@@ -124,11 +130,26 @@ def predict_batch(
     point_valid: torch.Tensor,  # (B, P)
     sp_ids: torch.Tensor,  # (B, P)
 ) -> SceneDetections:
-    """predict_scene over a scene group of one dataset; fields stacked on a
-    leading (B,) axis."""
-    per_scene = [
-        predict_scene(cfg, dataset_idx, *args)
-        for args in zip(cls_logits, boxes, query_valid, points, point_valid,
-                        sp_ids)
-    ]
-    return SceneDetections(*(torch.stack(f) for f in zip(*per_scene)))
+    """Post-processing of a scene group of one dataset, fields stacked on a
+    leading (B,) axis: each scene's top-k and NMS (span "post.nms"), then
+    the group's trimming (span "post.trim"), on the card one kernel launch
+    for the whole group, on the CPU the plain version scene by scene.
+    Trimming does not read the NMS mask; its "has" is and-ed into it."""
+    out_boxes, labels, scores, keep = (torch.stack(f) for f in zip(*(
+        _select_and_suppress(cfg, dataset_idx, *args)
+        for args in zip(cls_logits, boxes, query_valid))))
+    if cfg.use_superpoints[dataset_idx]:
+        with span("post.trim"):
+            if points.is_cuda:
+                out_boxes, has = sp_trim_cuda(
+                    points.contiguous(), point_valid.contiguous(), sp_ids.int().contiguous(),
+                    out_boxes, cfg.max_superpoints, cfg.low_sp_thr, cfg.up_sp_thr,
+                )
+                keep = keep & has
+            else:
+                out_boxes, keep = (torch.stack(f) for f in zip(*(
+                    trim_boxes_by_superpoints(cfg, *args)
+                    for args in zip(out_boxes, keep, points, point_valid, sp_ids))))
+    return SceneDetections(
+        boxes=out_boxes, labels=labels, scores=scores, valid=keep
+    )
