@@ -188,9 +188,21 @@ Phases (any failure raises and the script exits non-zero):
      points, tests/test_torch_reference_scale_budgets.py's mix) at the
      default config in groups of 4: zero drops, every point valid, 37 K1
      and 6 K3 per forward, ms per group, peak memory;
- 32. the whole script's wall time, the `kernels` JSON line (per training
-     step of phase 13; the probe's modes per probe call), the card's name
-     and power limit, and the final JSON line.
+ 32. [m1]: M1, OneFormer3D's masked cross-attention (csrc/mask_attention.cu),
+     against its plain version (attention_tol, which the plain version with
+     every bit open fails) at the OneFormer3D ScanNet cell's shape (4 scenes,
+     8 heads, 3,092 queries, 3,072 keys, head dim 32, bf16) at 25, 50 and 100
+     % of random open bits and at 25 % in 64-key blocks (where its tile
+     skipping works), bit-equal on a second launch, its time beside its
+     bound, its plain version's and SDPA's with a boolean mask; then the main
+     path, OneFormer3D at its published widths (configs/oneformer3d_scannet)
+     on the 4 largest of [prod-ref]'s scenes: forward and predict_instances
+     with the counters reset just before, 37 K1, 6 K3 and 6 M1 launches, and
+     M1, its plain version and SDPA timed on the 6 launches' own inputs;
+ 33. the whole script's wall time, the `kernels` JSON line (per training
+     step of phase 13; the probe's modes per probe call; M1 per forward of
+     [m1]'s main path), the card's name and power limit, and the final JSON
+     line.
 Times are CUDA-event means (the conv kernels per shape: the median of 5 such
 means) or synchronised host-clock medians on the card in this run.
 """
@@ -270,6 +282,12 @@ from unidet3d_tpu_torch.ops.attention import (
     flash_attention_cuda,
     flash_attention_dkv_cuda,
     flash_attention_dq_cuda,
+)
+from unidet3d_tpu_torch.ops.mask_attention import (
+    mask_attention_cuda,
+    mask_attention_plain,
+    pack_bits,
+    unpack_bits,
 )
 from unidet3d_tpu_torch.ops.gridpack import (
     build_gridpack_device,
@@ -2882,6 +2900,190 @@ def phase_prod_ref(table, card):
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB | {card}")
 
 
+M1_SHAPE = (4, 8, 3092, 3072)  # the cell's largest group: B, H, 20 + 3,072 queries, keys
+M1_REPS = 10
+
+
+def m1_inputs(density, blocks=False, seed=0):
+    """q, k, v (B, H, Lq, 32) / (B, H, Lk, 32) bf16 and the (B, Lq, Lk) bool
+    mask at M1_SHAPE: random bits of the given density, or (blocks) bit (i,
+    j) open where the 64-row block of i and the 64-key block of j agree mod
+    round(1 / density), so that whole tiles are closed."""
+    dev = torch.device("cuda")
+    b, h, lq, lk = M1_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b, h, n, 32), generator=gen, device=dev).to(torch.bfloat16)
+               for n in (lq, lk, lk))
+    if blocks:
+        period = round(1 / density)
+        rows = torch.arange(lq, device=dev) // 64 % period
+        mask = (rows[:, None] == torch.arange(lk, device=dev)[None, :] // 64 % period)
+        mask = mask[None].expand(b, -1, -1).contiguous()
+    else:
+        mask = torch.rand((b, lq, lk), generator=gen, device=dev) < density
+    return q, k, v, mask
+
+
+def m1_times(q, k, v, bits, q_len, k_len, scale):
+    """(M1 ms, plain ms, SDPA ms with a boolean mask, open pairs of the
+    valid rows) of one launch's inputs."""
+    lq, lk = q.shape[2], k.shape[2]
+    rows = torch.arange(lq, device=q.device)[None, :] < q_len[:, None]
+    keys = torch.arange(lk, device=q.device)[None, :] < k_len[:, None]
+    mask = unpack_bits(bits, lk) & rows[:, :, None] & keys[:, None, :]
+    pairs = int(mask.sum())
+    mask4 = mask[:, None]
+    return (cuda_ms(lambda: mask_attention_cuda(q, k, v, bits, q_len, k_len, scale),
+                    reps=M1_REPS),
+            cuda_ms(lambda: mask_attention_plain(q, k, v, bits, q_len, k_len, scale), reps=2),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
+                                                           scale=scale), reps=2),
+            pairs)
+
+
+def m1_bound_ms(pairs, q, k, bits) -> tuple:
+    """(bound ms, "bytes" or "operations") of M1 over `pairs` open (query,
+    key) pairs: per pair and head the q k and p v products of width 32 and
+    one exp (SFU, 16 per clock per SM), against q, k, v, o and the bits
+    read or written once."""
+    h, hd = q.shape[1], q.shape[3]
+    ops_ms = 2.0 * 2 * pairs * h * hd / BF16_FLOPS * 1e3
+    exps_ms = pairs * h / (torch.cuda.get_device_properties(0).multi_processor_count
+                           * SFU_EXP_PER_CLOCK * sm_clock_hz()) * 1e3
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + bits.numel() * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, exps_ms, bytes_ms), "bytes" if bytes_ms >= max(ops_ms, exps_ms) else (
+        "operations")
+
+
+def phase_m1(card, ptxas=()):
+    """M1 against its plain version at the cell's shape, timed beside its
+    bound, its plain version and SDPA; then the OneFormer3D main path's
+    launches, and M1 timed on its own inputs (phase 32 of the module
+    docstring). Returns the `kernels` line's numbers, per forward of the
+    main path."""
+    from unidet3d_tpu_torch.configs.oneformer3d_scannet import get_config as of3d_config
+    from unidet3d_tpu_torch.models import oneformer3d
+    from unidet3d_tpu_torch.models.instance_postprocess import predict_instances
+
+    tag = "m1"
+    for name, stats in ptxas:
+        print(f"[{tag}] ptxas: {ptxas_line(name, stats)}")
+    b, h, lq, lk = M1_SHAPE
+    scale = 32 ** -0.5
+    dev = torch.device("cuda")
+    full_q = torch.full((b,), lq, dtype=torch.int32, device=dev)
+    full_k = torch.full((b,), lk, dtype=torch.int32, device=dev)
+    for density, blocks in ((0.25, False), (0.5, False), (1.0, False), (0.25, True)):
+        q, k, v, mask = m1_inputs(density, blocks)
+        mask[:, 1] = False  # a closed row: zeros
+        q_len = full_q - torch.arange(b, dtype=torch.int32, device=dev) * 37
+        k_len = full_k - torch.arange(b, dtype=torch.int32, device=dev) * 29
+        bits = pack_bits(mask)
+        out = mask_attention_cuda(q, k, v, bits, q_len, k_len, scale)
+        again = mask_attention_cuda(q, k, v, bits, q_len, k_len, scale)
+        ref = mask_attention_plain(q, k, v, bits, q_len, k_len, scale)
+        torch.testing.assert_close(out.float(), ref.float(), **attention_tol(ref))
+        assert torch.equal(out, again), (tag, density, blocks)
+        assert not out[:, :, 1].any(), (tag, "closed row")
+        for i in range(b):
+            assert not out[i, :, int(q_len[i]):].any(), (tag, "rows past q_len")
+        err = (out.float() - ref.float()).abs().max().item()
+        if density < 1:  # the tolerance tells a kernel that ignored the bits
+            wrong = mask_attention_plain(q, k, v, pack_bits(torch.ones_like(mask)), q_len,
+                                         k_len, scale)
+            try:
+                torch.testing.assert_close(wrong.float(), ref.float(), **attention_tol(ref))
+            except AssertionError:
+                pass
+            else:
+                raise AssertionError((tag, "the tolerance passes unmasked attention"))
+        ms, plain_ms, sdpa_ms, pairs = m1_times(q, k, v, bits, full_q, full_k, scale)
+        bound, by = m1_bound_ms(pairs, q, k, bits)
+        print(f"[{tag}] B {b} H {h} Lq {lq} Lk {lk} {'blocks of 64' if blocks else 'random'} "
+              f"{density:.0%} open ({pairs} pairs): max err {err:.2e} (bf16 tol) bit-equal; "
+              f"M1 {ms:.4f} ms bound {bound:.4f} ms ({by}; {100 * bound / ms:.1f} %) plain "
+              f"{plain_ms:.3f} ms sdpa {sdpa_ms:.3f} ms a launch | {card}")
+        del q, k, v, mask, bits, out, again, ref
+
+    # The main path: forward and post-processing at the published widths.
+    cfg = of3d_config().model
+    samples = sorted(reference_scale_scenes(), key=lambda smp: -len(smp["points"]))[:GROUP]
+    sizes = [len(smp["points"]) for smp in samples]
+    DROPS.reset()
+    batch, _, pack = collate(samples, cfg)
+    drops = DROPS.snapshot(reset=True)
+    assert not drops, (tag, DROPS.format(drops))
+    net = seeded_init_(oneformer3d.OneFormer3D(cfg, device="cuda"), 0)
+    captured = []
+    kernel = oneformer3d.mask_attention_cuda
+
+    def capture(*args):
+        captured.append([a.clone() if torch.is_tensor(a) else a for a in args])
+        return kernel(*args)
+
+    @torch.no_grad()
+    def run():
+        bt, pk = to_device(batch, pack, "cuda")
+        out, aux = net(bt, pk)
+        pred = predict_instances(cfg, out.cls_logits[-1], out.masks, aux.sp_valid,
+                                 aux.sp_counts)
+        torch.cuda.synchronize()
+        return out, aux, pred
+
+    run()  # warm-up
+    oneformer3d.mask_attention_cuda = capture
+    try:
+        reset_counts()
+        mask_attention_cuda.launches = 0
+        out, aux, pred = run()
+        launches, m1 = read_counts(), mask_attention_cuda.launches
+    finally:
+        oneformer3d.mask_attention_cuda = kernel
+    assert launches == dict(NO_LAUNCHES, subm_conv=37, flash_attention=6), launches
+    assert m1 == cfg.num_layers == len(captured), (m1, len(captured))
+    qv = aux.query_valid
+    assert torch.isfinite(out.cls_logits[:, qv]).all() and torch.isfinite(out.masks[qv]).all()
+    ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        run()
+        ms.append((time.perf_counter() - t) * 1e3)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    ops_ms = bytes_ms = 0.0
+    per_layer = []
+    all_pairs = int((qv.sum(1) * aux.sp_valid.sum(1)).sum())
+    for args in captured:
+        q, k, v, bits, q_len, k_len, sc = args
+        ref = mask_attention_plain(q, k, v, bits, q_len, k_len, sc)
+        got = kernel(q, k, v, bits, q_len, k_len, sc)
+        torch.testing.assert_close(got.float(), ref.float(), **attention_tol(ref))
+        t_m1, t_plain, t_sdpa, pairs = m1_times(q, k, v, bits, q_len, k_len, sc)
+        bound, by = m1_bound_ms(pairs, q, k, bits)
+        total["ms"] += t_m1
+        total["plain_ms"] += t_plain
+        total["library_ms"] += t_sdpa
+        total["bound_ms"] += bound
+        total["max_abs_err"] = max(total["max_abs_err"],
+                                   (got.float() - ref.float()).abs().max().item())
+        (bytes_ms, ops_ms) = (bytes_ms + bound, ops_ms) if by == "bytes" else (
+            bytes_ms, ops_ms + bound)
+        per_layer.append(f"{pairs} pairs ({100 * pairs / all_pairs:.1f} % of the valid rows' "
+                         f"valid keys) {t_m1:.4f} ms")
+    print(f"[{tag}] main path: OneFormer3D, group of {len(samples)} scenes of {sizes} points, "
+          f"{int(aux.sp_valid.sum())} valid superpoints, no drops; launches per forward K1 "
+          f"{launches['subm_conv']}, K3 {launches['flash_attention']}, M1 {m1}; instances kept "
+          f"{int(pred.keep.sum())}; group (H2D, forward, predict_instances) "
+          f"{statistics.median(ms):.1f} ms, median of 3; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB | {card}")
+    print(f"[{tag}] main path's M1 launches, on their own inputs: " + "; ".join(per_layer))
+    print(f"[{tag}] per forward: M1 {total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+          f"({100 * total['bound_ms'] / total['ms']:.1f} %), plain {total['plain_ms']:.3f} ms, "
+          f"sdpa (bool mask) {total['library_ms']:.3f} ms, max err {total['max_abs_err']:.2e} "
+          f"| {card}")
+    return dict(total, launches=m1, bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip smoke needs the card",
@@ -2949,6 +3151,7 @@ def main() -> int:
         phase_overfit_small(table, card, root)
         phase_overfit(table, card, root)
     phase_prod_ref(table, card)
+    m1 = phase_m1(card, ptxas=ptxas.get("mask_attention", ()))
     assert ddp_launches == {name: launches[name] for name in COUNTERS}, ddp_launches
 
     sources = {
@@ -2985,6 +3188,10 @@ def main() -> int:
         replaces=None, launches=trims,
         **{key: trim[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}))
+    kernels.append(dict(
+        name="mask_attention", route="cuda", source="unidet3d_tpu_torch/csrc/mask_attention.cu",
+        replaces=None, **{key: m1[key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "library_ms")}))
     for name, num in probe.items():
         kernels.append(dict(
             name=name, route="cuda", source="unidet3d_tpu_torch/csrc/subm_conv.cu",
@@ -2997,6 +3204,9 @@ def main() -> int:
           "forward and post-processing of a group of 4 (phase 6), every number per group of 4 "
           "at [sp-trim]'s shapes, no library call computes it; "
           "the attention bounds count one exp per pair at 16 per clock per SM. "
+          "mask_attention (M1): replaces no TPU kernel, on no training or UniDet3D path; "
+          "launches and every number per OneFormer3D forward of a group of 4 at [m1]'s "
+          "main path, on its 6 launches' own inputs; library: SDPA with a boolean mask. "
           "probe_conv_*: on no training or eval path (0 launches per step, asserted); "
           "launches from one run of the probe's modes, every number per probe call "
           "(one 131,072-point scene, level 0, 32->32, bf16; bound: the bytes over 3.35 TB/s "

@@ -41,8 +41,8 @@ class RangeSpy:
 def test_span_names_are_the_layer_boundaries():
     assert SPAN_NAMES == (
         "loader.pipeline", "loader.collate", "loader.pack", "loader.stage",
-        "eval.open", "eval.wait", "eval.forward", "eval.post", "post.trim", "post.nms",
-        "eval.fetch", "eval.metric", "eval.compute",
+        "eval.open", "eval.wait", "eval.forward", "eval.decoder", "eval.post", "post.trim",
+        "post.nms", "post.masks", "eval.fetch", "eval.metric", "eval.compute",
         "step", "step.forward", "step.loss", "step.backward", "step.optimizer",
         "train.wait", "train.checkpoint")
 

@@ -79,6 +79,53 @@ class ModelConfig:
         return tuple(c * batch_size for c in caps)
 
 
+@dataclasses.dataclass(frozen=True)
+class OneFormer3DConfig:
+    """OneFormer3D's ScanNet instance segmentation (configs/
+    oneformer3d_1xb4_scannet.py of github.com/filapro/oneformer3d), at
+    inference. The backbone and the static capacities are UniDet3D's
+    (``ModelConfig``'s names, read by the same data path); the decoder and
+    ``test_cfg`` are the public config's."""
+
+    in_channels: int = 6
+    num_channels: int = 32
+    voxel_size: float = 0.02
+    min_spatial_shape: int = 128
+    num_planes: Tuple[int, ...] = (32, 64, 96, 128, 160)
+    # Decoder (ScanNetQueryDecoder): every superpoint is an instance query,
+    # plus the semantic queries; iter_pred and attn_mask.
+    num_layers: int = 6
+    d_model: int = 256
+    num_heads: int = 8
+    hidden_dim: int = 1024
+    dropout: float = 0.0
+    activation: str = "gelu"
+    num_semantic_queries: int = 20
+    num_instance_classes: int = 18
+    num_semantic_classes: int = 20
+    datasets: Tuple[str, ...] = ("scannet",)
+    # test_cfg.
+    topk_insts: int = 600
+    inst_score_thr: float = 0.0
+    npoint_thr: int = 100
+    obj_normalization: bool = True
+    sp_score_thr: float = 0.4
+    nms: bool = True
+    matrix_nms_kernel: str = "linear"
+    # Static capacities, as ModelConfig's.
+    max_points: int = 196608
+    voxel_capacity: int = 163840
+    max_superpoints: int = 3072
+    max_gts: int = 128
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def num_datasets(self) -> int:
+        return len(self.datasets)
+
+    level_capacities = ModelConfig.level_capacities
+
+
 CLASSES_SCANNET = (
     "cabinet", "bed", "chair", "sofa", "table", "door", "window",
     "bookshelf", "picture", "counter", "desk", "curtain", "refrigerator",

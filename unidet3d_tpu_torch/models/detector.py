@@ -83,6 +83,39 @@ class ForwardAux(NamedTuple):
     geom_points: torch.Tensor  # (B, P, 3) points in the geometry frame
 
 
+def voxel_features(cfg, batch: PointBatch, pack: GridPack | None):
+    """(pack, pinv, vox_feats): the rulebooks (built on the device when
+    `pack` is None: one host read, the levels' voxel counts), each point's
+    level-0 voxel (padding points at the sentinel V0) and the per-voxel
+    mean of the point features (V0, 6). UniDet3D's and OneFormer3D's
+    voxelization."""
+    b, p, _ = batch.points.shape
+    flat_valid = batch.valid.reshape(-1)
+    if pack is None:  # the device-side fallback
+        pack, _ = build_gridpack_device(quantize_points_device(batch.vox_src, batch.valid),
+                                        flat_valid, cfg.level_capacities(b))
+    v0 = pack.capacity(0)
+    pinv = torch.where(flat_valid, pack.point_inverse, v0)
+    vox_feats = segment_mean(batch.features.reshape(b * p, -1), pinv, v0)
+    return pack, pinv, vox_feats
+
+
+def pool_superpoints(feats: torch.Tensor, pinv: torch.Tensor, batch: PointBatch, s: int):
+    """Voxel -> point -> superpoint pooling: (sp_flat, sp_feats, sp_counts),
+    each valid point's flat superpoint slot scene * s + id (padding points
+    at the sentinel B * s), the (B, s, C) mean features and the (B, s)
+    valid point counts per slot. UniDet3D's and OneFormer3D's pooling."""
+    b = batch.valid.shape[0]
+    flat_valid = batch.valid.reshape(-1)
+    point_feats = gather_rows(feats, pinv)
+    scene = torch.arange(b, device=pinv.device)[:, None] * s
+    sp_flat = (scene + batch.sp_ids.long().clamp(0, s - 1)).reshape(-1)
+    sp_flat = torch.where(flat_valid, sp_flat, b * s)  # sentinel dropped
+    sp_feats = segment_mean(point_feats, sp_flat, b * s).reshape(b, s, -1)
+    sp_counts = segment_sum(flat_valid.float(), sp_flat, b * s).reshape(b, s)
+    return sp_flat, sp_feats, sp_counts
+
+
 class UniDet3D(nn.Module):
     """Backbone + decoder; ``forward`` returns (DecoderOutput, ForwardAux).
 
@@ -150,24 +183,9 @@ class UniDet3D(nn.Module):
         pmin = vs.amin(dim=1, keepdim=True)
         pmin = torch.where(pmin >= BIG, 0.0, pmin)
 
-        flat_valid = batch.valid.reshape(-1)
-        if pack is None:  # the device-side fallback
-            pack, _ = build_gridpack_device(quantize_points_device(batch.vox_src, batch.valid),
-                                            flat_valid, cfg.level_capacities(b))
-        v0 = pack.capacity(0)
-        # Voxel features: per-voxel mean of the point features.
-        pinv = torch.where(flat_valid, pack.point_inverse, v0)
-        vox_feats = segment_mean(batch.features.reshape(b * p, -1), pinv, v0)
-
+        pack, pinv, vox_feats = voxel_features(cfg, batch, pack)
         feats = self.backbone(vox_feats, pack, train)
-
-        # Voxel -> point -> superpoint pooling.
-        point_feats = gather_rows(feats, pinv)
-        scene = torch.arange(b, device=pinv.device)[:, None] * s
-        sp_flat = (scene + batch.sp_ids.long().clamp(0, s - 1)).reshape(-1)
-        sp_flat = torch.where(flat_valid, sp_flat, b * s)  # sentinel dropped
-        sp_feats = segment_mean(point_feats, sp_flat, b * s).reshape(b, s, -1)
-        sp_counts = segment_sum(flat_valid.float(), sp_flat, b * s).reshape(b, s)
+        sp_flat, sp_feats, sp_counts = pool_superpoints(feats, pinv, batch, s)
         sp_valid = sp_counts > 0
         geom = (batch.vox_src - pmin) * cfg.voxel_size if train else batch.points
         sp_centers = segment_mean(geom.reshape(b * p, 3), sp_flat, b * s).reshape(b, s, 3)

@@ -26,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
-KERNELS = ("subm_conv", "subm_conv_wgrad", "attention", "attention_bwd", "sp_trim")
+KERNELS = ("subm_conv", "subm_conv_wgrad", "attention", "attention_bwd", "sp_trim",
+           "mask_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

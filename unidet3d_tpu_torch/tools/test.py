@@ -6,7 +6,9 @@
 
 Builds the model, restores the checkpoint strictly (the latest step unless
 ``--step``), runs ``train.loop.evaluate`` and prints one
-``name: mAP@0.25=... mAP@0.50=...`` line per dataset. ``--show-dir`` writes
+``name: mAP@0.25=... mAP@0.50=...`` line per dataset (UniDet3D), or
+``name: AP=... AP50=... AP25=... mIoU=...`` (OneFormer3D's
+``configs/oneformer3d_scannet.py``). ``--show-dir`` writes
 each scene's points, ground truth and predictions as .obj files under
 DIR/<dataset>_scene<k>/ (k: the scene's index in its info file); ``--show``
 opens each scene in the open3d viewer, and without open3d warns once and
@@ -24,7 +26,8 @@ import logging
 
 
 def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description="Evaluate a UniDet3D model (PyTorch port)")
+    ap = argparse.ArgumentParser(description="Evaluate a UniDet3D or OneFormer3D model "
+                                             "(PyTorch port)")
     ap.add_argument("config")
     ap.add_argument("checkpoint", help="checkpoint directory (<work_dir>/checkpoints)")
     ap.add_argument("--step", type=int, default=None)
@@ -63,10 +66,12 @@ def main(argv=None) -> dict:
     finally:
         destroy(created)
     for name, res in results.items():
-        print(
-            f"{name}: mAP@0.25={res.get('mAP_0.25', 0):.4f} "
-            f"mAP@0.50={res.get('mAP_0.50', 0):.4f}"
-        )
+        if "AP" in res:  # instance segmentation
+            print(f"{name}: AP={res['AP']:.4f} AP50={res['AP50']:.4f} "
+                  f"AP25={res['AP25']:.4f} mIoU={res['mIoU']:.4f}")
+        else:
+            print(f"{name}: mAP@0.25={res.get('mAP_0.25', 0):.4f} "
+                  f"mAP@0.50={res.get('mAP_0.50', 0):.4f}")
     return results
 
 

@@ -32,12 +32,13 @@ import logging
 import os
 import statistics
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..core.class_table import build_class_table
-from ..core.config import ModelConfig
+from ..core.config import ModelConfig, OneFormer3DConfig
 from ..core.experiment import ExperimentConfig, resolve_steps_per_epoch
 from ..data.dataset_specs import DEFAULT_LABEL_MAPPINGS
 from ..data.datasets import ConcatDataset, IndoorDataset
@@ -46,12 +47,15 @@ from ..data.pipelines import test_pipeline, train_pipeline
 from ..data.telemetry import DROPS
 from ..device import resolve_device
 from ..models.detector import UniDet3D
+from ..models.instance_postprocess import predict_instances
+from ..models.oneformer3d import OneFormer3D
 from ..models.postprocess import predict_batch
 from ..parallel.distributed import broadcast_module, is_primary, local_batch_size, rank_world
 from ..parallel.train_step import make_train_step
 from ..viz.show_results import show_online, show_result
 from ..weights import seeded_init_
 from .checkpoint import CheckpointManager, merge_by_prefix, restore_params
+from .instance_metric import InstanceSegMetric, count_group
 from .metric import IndoorMetric
 from .optim import make_optimizer
 from .profiling import SPANS, log_memory_stats, span
@@ -60,8 +64,12 @@ log = logging.getLogger("unidet3d_tpu_torch")
 
 
 def build_model(exp: ExperimentConfig, device="cuda"):
-    """(UniDet3D on `device`, its class table); the weights are zeros until
-    they are loaded or ``weights.seeded_init_`` fills them."""
+    """(the model of exp.model on `device`, its class table): UniDet3D for a
+    ModelConfig, OneFormer3D (no class table: None) for a
+    OneFormer3DConfig. The weights are zeros until they are loaded or
+    ``weights.seeded_init_`` fills them."""
+    if isinstance(exp.model, OneFormer3DConfig):
+        return OneFormer3D(exp.model, device=device), None
     table = build_class_table(exp.datasets_classes)
     return UniDet3D(exp.model, table, device=device), table
 
@@ -138,6 +146,9 @@ def train(exp: ExperimentConfig, resume: str | None = None, device="cuda"):
     they are initialised, loaded or restored, the step averages over the
     group, rank 0 writes the checkpoints and the log lines, and every rank
     validates its shard of each dataset (``evaluate`` gathers the metric)."""
+    if isinstance(exp.model, OneFormer3DConfig):
+        raise NotImplementedError("OneFormer3D runs at inference only: its matcher and "
+                                  "losses are not ported")
     device = resolve_device(device)
     rank, world = rank_world()
     launched = int(os.environ.get("WORLD_SIZE", "1"))
@@ -267,18 +278,99 @@ def at_capacities(model: UniDet3D, cfg_b: ModelConfig) -> UniDet3D:
     return model_b
 
 
-def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
-             num_threads: int | None = None, metric: IndoorMetric | None = None,
-             show: bool = False, show_dir: str | None = None):
-    """Per-dataset validation: returns IndoorMetric.compute()'s
-    {dataset name: {"mAP_0.25", "mAP_0.50", ...}}.
+class EvalGroup(NamedTuple):
+    """One group of an eval pass, as ``EvalLoader`` yields it."""
+    samples: list  # the test pipeline's sample dicts (the last one repeated to pad)
+    batch: object  # PointBatch on the device
+    pack: object  # GridPack on the device
+    cfg: object  # the group's bucket config
+    dataset_idx: int
+    index: int  # the group's index in its dataset's pass
+    scene_ids: list  # the real scenes' indices in the info file
 
-    `model` is the port's detector on `device` ("cuda" unless the caller asks
-    for "cpu"); it runs in eval mode under no_grad. For each dataset one
-    EvalLoader builds and stages the groups; each group runs the forward and
-    predict_batch at its bucket's config, and is drained (its detections
-    copied to the host and fed to the metric) one group late, after the next
-    group was dispatched, so that the host's metric work overlaps the card.
+
+class Viewer:
+    """evaluate's ``show`` / ``show_dir`` for detections: writes each
+    scene's .obj files and opens the open3d viewer, which without open3d
+    warns once and stops showing."""
+
+    def __init__(self, show: bool = False, show_dir: str | None = None):
+        self.show, self.show_dir = show, show_dir
+
+    def __bool__(self):
+        return bool(self.show or self.show_dir)
+
+    def scene(self, cfg, didx: int, k: int, sample: dict, gt_boxes, pred) -> None:
+        points = np.asarray(sample["points"], np.float32)
+        if self.show_dir:
+            show_result(self.show_dir, f"{cfg.datasets[didx]}_scene{k:05d}", points,
+                        gt_boxes, pred)
+        if self.show:
+            try:
+                show_online(points, pred)
+            except ImportError as e:
+                log.warning("show disabled: %s", e)
+                self.show = False
+
+
+def predict_group(model_b, group: EvalGroup, out, aux):
+    """Post-processing of a group's forward outputs, dispatched on the card:
+    UniDet3D's detections (``predict_batch``), or OneFormer3D's instances
+    (``predict_instances``) with their counts against the scenes'
+    ground-truth histograms (``instance_metric.count_group``). The group's
+    metric drains what this returns (``drain``). Both post-processing calls
+    are looked up here, in this module, where the benchmark's fault tests
+    replace them."""
+    cfg_b = model_b.cfg
+    if isinstance(model_b, OneFormer3D):
+        return count_group(predict_instances(cfg_b, out.cls_logits[-1], out.masks,
+                                             aux.sp_valid, aux.sp_counts), group.samples)
+    batch = group.batch
+    return predict_batch(cfg_b, group.dataset_idx, out.cls_logits[-1], out.boxes[-1],
+                         aux.query_valid, batch.points, batch.valid, batch.sp_ids)
+
+
+def drain(metric, pending, viewer: Viewer | None = None) -> None:
+    """The host half of one group, `pending` = (what ``predict_group``
+    returned, the group): the metric's own ``process_group`` copies the
+    predictions to the host and adds them (spans "eval.fetch", then
+    "eval.metric"), detections with the viewer's files."""
+    pred, group = pending
+    metric.process_group(pred, group, viewer)
+
+
+def eval_group(model, metric, group: EvalGroup, pending=None, viewer: Viewer | None = None):
+    """One group of ``evaluate``'s loop: the forward (span "eval.forward")
+    and the post-processing ("eval.post") at the group's bucket, dispatched,
+    then the drain of `pending`, the previous group's (``drain``), so that
+    the host's metric work of one group follows the dispatch of the next.
+    Returns this group's pending (its predictions on the device, the
+    group)."""
+    with torch.no_grad():
+        model_b = at_capacities(model, group.cfg)
+        with span("eval.forward", group.index):
+            out, aux = model_b(group.batch, group.pack)
+        with span("eval.post", group.index):
+            pred = predict_group(model_b, group, out, aux)
+    if pending is not None:
+        drain(metric, pending, viewer)
+    return pred, group
+
+
+def evaluate(exp: ExperimentConfig, model, device="cuda", logger=None,
+             num_threads: int | None = None, metric=None,
+             show: bool = False, show_dir: str | None = None):
+    """Per-dataset validation: returns the metric's compute(), for UniDet3D
+    IndoorMetric's {dataset name: {"mAP_0.25", "mAP_0.50", ...}}, for
+    OneFormer3D InstanceSegMetric's {dataset name: {"AP", "AP50", "AP25",
+    "mIoU", ...}}.
+
+    `model` is the port's UniDet3D or OneFormer3D on `device` ("cuda" unless
+    the caller asks for "cpu"); it runs in eval mode under no_grad. For each
+    dataset one EvalLoader builds and stages the groups; each group goes
+    through ``eval_group``: the forward and the post-processing at its
+    bucket's config, and the previous group's drain (its predictions copied
+    to the host and fed to the metric), one group late.
     In a torch.distributed run every process evaluates a strided shard of
     each dataset and the metric gathers before compute(). Each dataset's
     scenes/s, groups per bucket, seconds the loop waited for each group, the
@@ -287,54 +379,31 @@ def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
     The spans "eval.open" (datasets and loaders), "eval.wait" (each group's
     wait, of which `wait_s` holds the seconds), "eval.forward", "eval.post",
     "eval.fetch" and "eval.metric" (the drain) and "eval.compute" (gather and
-    mAP) cover the call.
-    `metric` is the IndoorMetric to fill (a new one by default); the scenes
-    it holds stay readable after the call.
+    the metric's numbers) cover the call.
+    `metric` is the metric to fill (a new IndoorMetric, or InstanceSegMetric
+    for OneFormer3D, by default); the scenes it holds stay readable after
+    the call.
 
     With `show_dir`, each scene's points, ground-truth boxes and kept
     predictions are written as .obj files (``viz/show_results.py::
     show_result``) under <show_dir>/<dataset>_scene<k>/, k being the scene's
     index in its info file, so that the processes of a distributed run write
     disjoint names. With `show`, each scene opens in the open3d viewer;
-    without open3d this warns once and evaluation goes on."""
+    without open3d this warns once and evaluation goes on. Both draw boxes:
+    OneFormer3D raises on them."""
     device = resolve_device(device)
     param = next(model.parameters())
     if param.device.type != device.type:
         raise ValueError(f"model on {param.device}, evaluate asked for {device}")
     cfg = exp.model
+    instances = isinstance(model, OneFormer3D)
+    if instances and (show or show_dir):
+        raise ValueError("show and show_dir draw boxes; OneFormer3D predicts masks")
     if metric is None:
-        metric = IndoorMetric(cfg, exp.datasets_classes)
+        metric = InstanceSegMetric() if instances else IndoorMetric(cfg, exp.datasets_classes)
     rank, world = rank_world()
     eval_bs = exp.eval_batch_size or 4
-
-    def drain(pending):
-        """The host half of one group: detections to numpy, into the metric
-        and the visualisers."""
-        nonlocal show
-        det, samples, scene_ids, didx, g = pending
-        with span("eval.fetch", g):
-            boxes, labels, scores, valid = (x.cpu().numpy() for x in det)
-        with span("eval.metric", g):
-            for i, k in enumerate(scene_ids):
-                gt_boxes = samples[i]["gt_bboxes_3d"]
-                if gt_boxes.shape[1] == 6:
-                    gt_boxes = np.concatenate(
-                        [gt_boxes, np.zeros((len(gt_boxes), 1), np.float32)], 1)
-                metric.process(didx, boxes[i], labels[i], scores[i], valid[i], gt_boxes,
-                               samples[i]["gt_labels_3d"])
-                if not (show or show_dir):
-                    continue
-                pred = boxes[i][valid[i].astype(bool)]
-                points = np.asarray(samples[i]["points"], np.float32)
-                if show_dir:
-                    show_result(show_dir, f"{cfg.datasets[didx]}_scene{k:05d}", points,
-                                gt_boxes, pred)
-                if show:
-                    try:
-                        show_online(points, pred)
-                    except ImportError as e:
-                        log.warning("show disabled: %s", e)
-                        show = False
+    viewer = Viewer(show, show_dir)
 
     was_training = model.training
     model.eval()
@@ -359,20 +428,12 @@ def evaluate(exp: ExperimentConfig, model: UniDet3D, device="cuda", logger=None,
                 with span("eval.wait", g) as wait:
                     samples, batch, _, pack, n_real, cfg_b = next(groups)
                 waits.append(wait.seconds)
-                with torch.no_grad():
-                    with span("eval.forward", g):
-                        out, aux = at_capacities(model, cfg_b)(batch, pack)
-                    with span("eval.post", g):
-                        det = predict_batch(cfg_b, didx, out.cls_logits[-1], out.boxes[-1],
-                                            aux.query_valid, batch.points, batch.valid,
-                                            batch.sp_ids)
-                if pending is not None:
-                    drain(pending)
-                pending = (det, samples, loader.group_indices(g), didx, g)
+                group = EvalGroup(samples, batch, pack, cfg_b, didx, g, loader.group_indices(g))
+                pending = eval_group(model, metric, group, pending, viewer)
                 buckets[(cfg_b.max_points, cfg_b.max_superpoints)] += 1
                 n_ds += n_real
             if pending is not None:
-                drain(pending)
+                drain(metric, pending, viewer)
                 pending = None
             dt = max(time.time() - t0, 1e-9)
             n_scenes += n_ds

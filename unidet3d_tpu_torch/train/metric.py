@@ -14,6 +14,7 @@ import torch.distributed as dist
 
 from ..core.config import ModelConfig
 from .indoor_eval import indoor_eval
+from .profiling import span
 
 
 class IndoorMetric:
@@ -45,6 +46,28 @@ class IndoorMetric:
             "gt_boxes": np.asarray(gt_boxes).reshape(-1, 7),
             "gt_labels": np.asarray(gt_labels),
         })
+
+    def process_group(self, pred, group, viewer=None):
+        """Adds an eval group's scenes: `pred` its (boxes, labels, scores,
+        valid) detections on the device (``predict_batch``), `group` the
+        loop's EvalGroup. The copy to the host is the span "eval.fetch",
+        the rest "eval.metric"; a true `viewer` (``loop.Viewer``) gets each
+        scene's points, ground truth and kept boxes."""
+        g, didx = group.index, group.dataset_idx
+        with span("eval.fetch", g):
+            boxes, labels, scores, valid = (x.cpu().numpy() for x in pred)
+        with span("eval.metric", g):
+            for i, k in enumerate(group.scene_ids):
+                sample = group.samples[i]
+                gt_boxes = sample["gt_bboxes_3d"]
+                if gt_boxes.shape[1] == 6:
+                    gt_boxes = np.concatenate(
+                        [gt_boxes, np.zeros((len(gt_boxes), 1), np.float32)], 1)
+                self.process(didx, boxes[i], labels[i], scores[i], valid[i], gt_boxes,
+                             sample["gt_labels_3d"])
+                if viewer:
+                    viewer.scene(group.cfg, didx, k, sample, gt_boxes,
+                                 boxes[i][valid[i].astype(bool)])
 
     def gather_across_processes(self):
         """Every process contributes its scenes; afterwards each holds the

@@ -25,13 +25,15 @@ import torch
 log = logging.getLogger("unidet3d_tpu_torch")
 
 # Every span the program opens, by layer. Children lie inside their parent:
-# post.* inside eval.post, step.* inside step.
+# eval.decoder (OneFormer3D's decoder) inside eval.forward, post.* inside
+# eval.post, step.* inside step.
 SPAN_NAMES = (
     # data/loader.py::_build, on the loaders' worker threads
     "loader.pipeline", "loader.collate", "loader.pack", "loader.stage",
-    # train/loop.py::evaluate (and models/postprocess.py), on its thread
-    "eval.open", "eval.wait", "eval.forward", "eval.post", "post.trim", "post.nms",
-    "eval.fetch", "eval.metric", "eval.compute",
+    # train/loop.py::evaluate (and models/postprocess.py, models/
+    # instance_postprocess.py, models/oneformer3d.py), on its thread
+    "eval.open", "eval.wait", "eval.forward", "eval.decoder", "eval.post", "post.trim",
+    "post.nms", "post.masks", "eval.fetch", "eval.metric", "eval.compute",
     # parallel/train_step.py::make_train_step
     "step", "step.forward", "step.loss", "step.backward", "step.optimizer",
     # train/loop.py::train
