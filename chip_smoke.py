@@ -34,6 +34,13 @@ Phases (any failure raises and the script exits non-zero):
      per group of 4 (one launch for the group, as predict_batch makes it)
      beside its bound and the plain version's, and its registers, spills
      and shared memory;
+  4b. [pool]: G1, the point-to-superpoint pooling (csrc/point_pool.cu),
+     forward and backward equal to the plain path on the CPU (gather,
+     segment mean, autograd's backward) bit for bit, twice, at the staged
+     training cell's shapes (data/synthetic.py::pool_batch: 8 x 196,608
+     slots, 885,000 valid), each direction's ms beside its bound, the plain
+     path's and index_select / index_add_'s; phases 6 and 13 assert its
+     calls on the main paths (one a forward, one a backward);
   5. the whole eval forward on the card (through K1 and K3) against the same
      forward on the CPU (plain versions), fp32, one 16k-point scene;
   6. the production eval path at full width, bf16: collate (native
@@ -247,8 +254,10 @@ from unidet3d_tpu_torch.data.dataset_specs import DEFAULT_LABEL_MAPPINGS, SCANNE
 from unidet3d_tpu_torch.data.datasets import ConcatDataset, IndoorDataset
 from unidet3d_tpu_torch.data.loader import TrainLoader
 from unidet3d_tpu_torch.data.synthetic import (
+    POOL_VALID,
     REFERENCE_SCALE_POINTS,
     TRIM_VALID,
+    pool_batch,
     reference_scale_scenes,
     reference_state_dict,
     stripe_superpoints,
@@ -296,6 +305,11 @@ from unidet3d_tpu_torch.ops.gridpack import (
     quantize_points_device,
 )
 from unidet3d_tpu_torch.ops.nms import pairwise_iou_aa, pairwise_iou_rotated
+from unidet3d_tpu_torch.ops.point_pool_cuda import (
+    point_pool_bwd_cuda,
+    point_pool_cuda,
+    point_pool_plain,
+)
 from unidet3d_tpu_torch.ops.probe_conv import MODES as PROBE_MODES
 from unidet3d_tpu_torch.ops.probe_conv import probe_conv_cuda
 from unidet3d_tpu_torch.ops.sp_trim_cuda import sp_trim_cuda
@@ -386,6 +400,11 @@ def read_counts() -> dict:
     counts = {name: fn.launches for name, fn in COUNTERS.items()}
     counts.update({name: probe_conv_cuda.launches[mode] for name, mode in PROBES.items()})
     return counts
+
+
+def pool_calls() -> tuple:
+    """G1's (forward, backward) calls so far."""
+    return point_pool_cuda.launches, point_pool_bwd_cuda.launches
 
 
 def make_scenes(n_scenes, n_points, seed0=0):
@@ -739,6 +758,94 @@ def phase_sp_trim(card, ptxas=()):
     return num
 
 
+def phase_pool(card, ptxas=()):
+    """[pool]: G1, the point-to-superpoint pooling, at the staged training
+    cell's shapes (data/synthetic.py::pool_batch: 8 scenes of 196,608
+    slots, 885,000 valid points, ~44 % padding, C 32, S 3072): forward and
+    backward equal to the plain path on the CPU (the gather and segment
+    mean that pool_superpoints ran before, autograd's backward) bit for
+    bit, again on a second call in PyTorch's deterministic mode; then each
+    direction's ms (CUDA events) beside its bound, the plain path's on the
+    card and the library yardstick's (index_select, whose backward is
+    index_add_, then the same segment mean). Returns the `kernels` line's
+    numbers, per training step (one call each way)."""
+    tag = "pool"
+    dev = torch.device("cuda")
+    feats, pinv, sp_flat, n = pool_batch(seed=0)
+    feats, pinv, sp_flat = (torch.from_numpy(x).to(dev) for x in (feats, pinv, sp_flat))
+    v0, c = feats.shape
+    cot = torch.randn((n, c), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def g1_fwd():
+        return point_pool_cuda(feats, pinv, sp_flat, n)
+
+    mean, counts = g1_fwd()
+
+    def g1_bwd():
+        return point_pool_bwd_cuda(cot, counts, pinv, sp_flat, v0)
+
+    def plain_fwd():
+        x = feats.detach().requires_grad_()
+        return x, point_pool_plain(x, pinv, sp_flat, n)[0]
+
+    def plain_both():
+        x, m = plain_fwd()
+        m.backward(cot)
+        return x.grad
+
+    def library_both():
+        x = feats.detach().requires_grad_()
+        rows = torch.cat([x, x.new_zeros((1, c))]).index_select(0, pinv)
+        total = torch.zeros((n + 1, c), device=dev).index_add_(0, sp_flat.clamp(max=n), rows)
+        (total[:n] / counts[:, None].clamp(min=1.0)).backward(cot)
+        return x.grad
+
+    grad = g1_bwd()
+    x = feats.cpu().requires_grad_()
+    ref, ref_counts = point_pool_plain(x, pinv.cpu(), sp_flat.cpu(), n)
+    ref.backward(cot.cpu())
+    got = [t.cpu() for t in (mean, counts, grad)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        again = [t.cpu() for t in (*g1_fwd(), g1_bwd())]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = (ref.detach(), ref_counts, x.grad)
+    for name, w, first, second in zip(("mean", "counts", "grad"), want, got, again):
+        assert torch.equal(first, w) and torch.equal(second, w), (tag, name)
+    card_plain = plain_both()
+    max_abs_err = 0.0  # bit for bit against the CPU
+    for name, stats in ptxas:
+        print(f"[{tag}] ptxas: {ptxas_line(name, stats)}")
+    fwd_ms, bwd_ms = cuda_ms(g1_fwd, reps=20), cuda_ms(g1_bwd, reps=20)
+    plain_fwd_ms = cuda_ms(plain_fwd, reps=3)
+    plain_ms = cuda_ms(plain_both, reps=3)
+    library_ms = cuda_ms(library_both, reps=3)
+    n_slots, n_valid = len(pinv), int((sp_flat < n).sum())
+    used_rows = int(torch.unique(pinv[pinv < v0]).numel())
+    # Each input byte read once, each output byte written once: forward the
+    # index arrays, the voxel rows the points reach, the means and counts;
+    # backward the index arrays, the cotangent and counts, the whole gradient.
+    fwd_bytes = n_slots * 12 + used_rows * c * 4 + n * (c + 1) * 4
+    bwd_bytes = n_slots * 12 + n * (c + 1) * 4 + v0 * c * 4
+    fwd_bound, bwd_bound = (nb / HBM_BYTES_PER_S * 1e3 for nb in (fwd_bytes, bwd_bytes))
+    num = dict(max_abs_err=max_abs_err, ms=fwd_ms + bwd_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=fwd_bound + bwd_bound, bound_by="bytes",
+               fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+    print(f"[{tag}] {len(POOL_VALID)} scenes x {n_slots // len(POOL_VALID)} slots "
+          f"({n_valid} valid, {1 - n_valid / n_slots:.1%} padding), {used_rows} voxels of "
+          f"{v0}, C {c}, {n} superpoint slots: mean, counts and gradient equal the CPU's "
+          f"plain path bit for bit, twice (the second in deterministic mode); the card's "
+          f"plain gradient differs from the CPU's by up to "
+          f"{(card_plain.cpu() - x.grad).abs().max().item():.3g} | {card}")
+    print(f"[{tag}] G1 forward {fwd_ms:.4f} ms (bound {fwd_bound:.4f}: {fwd_bytes} B), "
+          f"backward {bwd_ms:.4f} ms (bound {bwd_bound:.4f}: {bwd_bytes} B), each with its "
+          f"sort; plain path forward {plain_fwd_ms:.3f} ms, forward + backward "
+          f"{plain_ms:.2f} ms; library (index_select / index_add_) forward + backward "
+          f"{library_ms:.2f} ms | {card}")
+    return num
+
+
 def phase_e2e_small(table, card):
     """Card forward (kernels) vs CPU forward (plain versions), fp32."""
     n_points = 16384
@@ -796,10 +903,11 @@ def phase_production(samples, table, card, dataset_idx=0, tag="prod", reps=3):
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    trims = sp_trim_cuda.launches
+    trims, pools = sp_trim_cuda.launches, pool_calls()
     b_run, out_run, aux_run, det = run()  # the main-path run whose launches are counted
     launches = read_counts()
     assert launches == dict(NO_LAUNCHES, subm_conv=37, flash_attention=6), (tag, launches)
+    assert np.subtract(pool_calls(), pools).tolist() == [1, 0], (tag, pools, pool_calls())
     trims = sp_trim_cuda.launches - trims
     assert trims == (1 if cfg.use_superpoints[dataset_idx] else 0), (tag, trims)
     out, aux = out_run, aux_run
@@ -1162,6 +1270,7 @@ def phase_train(batch, gt, pack, pack_s, table, card, tag="train", steps=TRAIN_S
     for i in range(steps):
         torch.cuda.synchronize()
         reset_counts()
+        pools = pool_calls()
         t0 = time.perf_counter()
         b, p = to_device(batch, pack, "cuda")
         g = gt_to_device(gt, "cuda")
@@ -1170,6 +1279,8 @@ def phase_train(batch, gt, pack, pack_s, table, card, tag="train", steps=TRAIN_S
         step_ms.append((time.perf_counter() - t0) * 1e3)
         launches = read_counts()
         assert launches == TRAIN_LAUNCHES, (tag, i, launches)
+        pool_step = np.subtract(pool_calls(), pools).tolist()
+        assert pool_step == [1, 1], (tag, i, pool_step)
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
         if i == 0:
@@ -1244,7 +1355,7 @@ def phase_train(batch, gt, pack, pack_s, table, card, tag="train", steps=TRAIN_S
         torch.cuda.synchronize()
 
     phase_profile(run, card, f"one training step ({tag})", top=16)
-    return launches
+    return dict(launches, point_pool=sum(pool_step))
 
 # [native-pack], [loader-train], [eval-loop] and [eval-loop-small].
 LOADER_TRAIN_SCENES = {0: 8, 2: 4, ARKIT: 4}  # on disk: ScanNet, MultiScan, ARKitScenes
@@ -3108,6 +3219,7 @@ def main() -> int:
     phase_attention(n_sp, cfg.max_superpoints, card, backward=False,
                     ptxas=ptxas.get("attention", ()))
     trim = phase_sp_trim(card, ptxas=ptxas.get("sp_trim", ()))
+    pool = phase_pool(card, ptxas=ptxas.get("point_pool", ()))
     phase_e2e_small(table, card)
     prod, trims = phase_production(samples, table, card)
     rot_samples = train_scenes(GROUP, SCENE_POINTS, 20, N_GTS, datasets=(ARKIT,) * GROUP)
@@ -3189,6 +3301,11 @@ def main() -> int:
         **{key: trim[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}))
     kernels.append(dict(
+        name="point_pool", route="cuda", source="unidet3d_tpu_torch/csrc/point_pool.cu",
+        replaces=None, launches=launches["point_pool"],
+        **{key: pool[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}))
+    kernels.append(dict(
         name="mask_attention", route="cuda", source="unidet3d_tpu_torch/csrc/mask_attention.cu",
         replaces=None, **{key: m1[key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
                                                    "bound_ms", "bound_by", "library_ms")}))
@@ -3203,6 +3320,10 @@ def main() -> int:
           "sp_trim: replaces no TPU kernel, on no training path; launches from one eval "
           "forward and post-processing of a group of 4 (phase 6), every number per group of 4 "
           "at [sp-trim]'s shapes, no library call computes it; "
+          "point_pool (G1): replaces no TPU kernel; launches: one forward and one backward "
+          "call per training step (asserted in [train]; one forward call per eval forward, "
+          "asserted in [prod]), every number per step at [pool]'s shapes (the staged cell's "
+          "8 x 196,608 slots), forward + backward; library: index_select / index_add_; "
           "the attention bounds count one exp per pair at 16 per clock per SM. "
           "mask_attention (M1): replaces no TPU kernel, on no training or UniDet3D path; "
           "launches and every number per OneFormer3D forward of a group of 4 at [m1]'s "

@@ -221,6 +221,41 @@ def trim_group(seed: int = 0, yawed: bool = False):
     return points, valid, sp_ids, boxes
 
 
+# Superpoint pooling's batch at the staged training cell's shapes: 8 scenes
+# of POOL_SLOTS point slots, ScanNet's 52k-190k valid points and four scenes
+# of 100k (the other datasets' cap), ~44 % of the slots padding.
+POOL_VALID = TRIM_VALID + (100_000,) * 4
+POOL_SLOTS, POOL_VOXELS = 196_608, 163_840
+
+
+def pool_batch(seed: int = 0):
+    """``pool_superpoints``' inputs at the staged cell's shapes: scene i
+    holds POOL_VALID[i] points of synthetic_scene(seed + i) in a random
+    order at the front of its POOL_SLOTS (padding after), their 2 cm voxels
+    numbered over the batch in the order of their keys, superpoints of 64
+    points by x-rank (S = TRIM_SUPERPOINTS), and post-ReLU random features
+    of 32 channels in the voxel rows (zeros past them). Returns numpy
+    (feats (B * POOL_VOXELS, 32) float32, pinv (B * POOL_SLOTS,) int32 with
+    the sentinel B * POOL_VOXELS, sp_flat (B * POOL_SLOTS,) int64 with the
+    sentinel B * S, B * S)."""
+    rng = np.random.RandomState(seed)
+    b, s = len(POOL_VALID), TRIM_SUPERPOINTS
+    v0 = b * POOL_VOXELS
+    pinv = np.full(b * POOL_SLOTS, v0, np.int32)
+    sp_flat = np.full(b * POOL_SLOTS, b * s, np.int64)
+    n_vox = 0
+    for i, n in enumerate(POOL_VALID):
+        pts = synthetic_scene(n, seed=seed + i)[rng.permutation(n), :3]
+        _, inv = np.unique(np.floor(pts / 0.02).astype(np.int64), axis=0, return_inverse=True)
+        at = i * POOL_SLOTS
+        pinv[at:at + n] = n_vox + inv.reshape(-1)
+        n_vox += int(inv.max()) + 1
+        sp_flat[at:at + n] = i * s + np.minimum(stripe_superpoints(pts, 64), s - 1)
+    feats = np.zeros((v0, 32), np.float32)
+    feats[:n_vox] = np.maximum(rng.randn(n_vox, 32), 0.0)
+    return feats, pinv, sp_flat, b * s
+
+
 def coherent_scene(name: str, seed: int = 0, sp_per_inst: int = 4, n_bg_sp: int = 18,
                    inst_points: int = 300, bg_points: int = 1100) -> dict:
     """A geometrically coherent ScanNet scene for `write_info_dataset`: 3

@@ -27,8 +27,8 @@ from ..core.config import ModelConfig
 from ..device import resolve_device
 from ..losses.criterion import SceneGT, criterion
 from ..ops.gridpack import GridPack, build_gridpack_device, quantize_points_device
-from ..ops.segment import segment_mean, segment_sum
-from ..ops.sparse_conv import gather_rows
+from ..ops.point_pool_cuda import point_pool
+from ..ops.segment import segment_mean
 from ..parallel.distributed import rank_world
 from .decoder import DecoderOutput, UniDecoder
 from .unet import UNetBackbone
@@ -104,16 +104,14 @@ def pool_superpoints(feats: torch.Tensor, pinv: torch.Tensor, batch: PointBatch,
     """Voxel -> point -> superpoint pooling: (sp_flat, sp_feats, sp_counts),
     each valid point's flat superpoint slot scene * s + id (padding points
     at the sentinel B * s), the (B, s, C) mean features and the (B, s)
-    valid point counts per slot. UniDet3D's and OneFormer3D's pooling."""
+    valid point counts per slot (the kernel G1 on the card,
+    ``ops/point_pool_cuda.py``). UniDet3D's and OneFormer3D's pooling."""
     b = batch.valid.shape[0]
-    flat_valid = batch.valid.reshape(-1)
-    point_feats = gather_rows(feats, pinv)
     scene = torch.arange(b, device=pinv.device)[:, None] * s
     sp_flat = (scene + batch.sp_ids.long().clamp(0, s - 1)).reshape(-1)
-    sp_flat = torch.where(flat_valid, sp_flat, b * s)  # sentinel dropped
-    sp_feats = segment_mean(point_feats, sp_flat, b * s).reshape(b, s, -1)
-    sp_counts = segment_sum(flat_valid.float(), sp_flat, b * s).reshape(b, s)
-    return sp_flat, sp_feats, sp_counts
+    sp_flat = torch.where(batch.valid.reshape(-1), sp_flat, b * s)  # sentinel dropped
+    sp_feats, sp_counts = point_pool(feats, pinv, sp_flat, b * s)
+    return sp_flat, sp_feats.reshape(b, s, -1), sp_counts.reshape(b, s)
 
 
 class UniDet3D(nn.Module):

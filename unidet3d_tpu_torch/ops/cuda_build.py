@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 KERNELS = ("subm_conv", "subm_conv_wgrad", "attention", "attention_bwd", "sp_trim",
-           "mask_attention")
+           "mask_attention", "point_pool")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
